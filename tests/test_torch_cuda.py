@@ -1,0 +1,90 @@
+"""Tests of the port that need an NVIDIA GPU, marked ``cuda``.
+
+They hold the CUDA kernels to their plain PyTorch versions on the card and
+the pipeline on the card to the pipeline on the CPU. This file imports
+nothing of JAX, so it also runs on a machine with only PyTorch:
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+Without a card every test skips (the decision is made inside each test, so
+every pytest worker collects the same tests).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize, resize_normalize_plain
+
+pytestmark = pytest.mark.cuda
+
+K1_CASES = {  # (frames shape, out (h, w), crop, out dtype)
+    "plain": ((2, 36, 48, 3), (24, 32), None, torch.float32),
+    "crop": ((1, 40, 40, 3), (16, 16), (5, 8, 30, 24), torch.float32),
+    "bf16": ((1, 16, 16, 3), (8, 8), None, torch.bfloat16),
+    "serving-bf16": ((8, 360, 640, 3), (330, 586), None, torch.bfloat16),
+}
+
+
+def require_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+@pytest.mark.parametrize("case", list(K1_CASES))
+def test_k1_kernel_matches_plain(case):
+    """f32 out within atol 1e-4; bf16 out within one bf16 ulp of the f32
+    plain value plus that atol (near 0 the affine's cancellation leaves the
+    two f32 computations ~1e-6 apart, more than a bf16 ulp there); each call
+    launches the kernel once."""
+    require_cuda()
+    shape, (oh, ow), crop, dtype = K1_CASES[case]
+    gen = torch.Generator().manual_seed(4)
+    frames = torch.randint(0, 256, shape, dtype=torch.uint8, generator=gen).cuda()
+    before = resize_normalize.launches
+    out = resize_normalize(frames, oh, ow, crop=crop, out_dtype=dtype)
+    ref = resize_normalize_plain(frames, oh, ow, crop, torch.float32)
+    torch.cuda.synchronize()
+    assert resize_normalize.launches == before + 1
+    assert out.shape == (shape[0], oh, ow, 3) and out.dtype == dtype
+    err = (out.float() - ref).abs()
+    tol = 1e-4 if dtype == torch.float32 else bf16_ulp(ref) + 1e-4
+    assert bool((err <= tol).all()), err.max().item()
+
+
+def test_k1_rejects_non_contiguous():
+    require_cuda()
+    frames = torch.zeros(2, 8, 8, 3, dtype=torch.uint8, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        resize_normalize(frames[:, ::2], 4, 4)
+
+
+def test_pipeline_on_the_card_matches_the_cpu(tmp_path):
+    """One small request through the pipeline on the card (K1, cuDNN,
+    cuBLAS, TF32 off) and on the CPU (plain versions), same seed weights.
+    Tolerance 1e-3 on the normalized boxes: summation orders differ through
+    a whole model."""
+    require_cuda()
+    from tubedetr_tpu_torch.apps.pipeline import GroundingPipeline
+    from tubedetr_tpu_torch.config import TubeDETRConfig
+
+    cfg = TubeDETRConfig(
+        backbone="resnet14", hidden_dim=32, nheads=4, enc_layers=1, dec_layers=2,
+        dim_feedforward=64, video_max_len=8, video_max_len_train=8, stride=2,
+        resolution=128, max_text_len=8, text_vocab_size=128, text_hidden_size=32,
+        text_layers=1, text_heads=4, text_ffn=64, text_max_positions=40,
+        guided_attn=False, aux_loss=False, dropout=0.0,
+    )
+    path = str(tmp_path / "clip.npy")
+    np.save(path, np.random.RandomState(1).randint(0, 256, (7, 96, 160, 3), dtype=np.uint8))
+    before = resize_normalize.launches
+    out = {dev: GroundingPipeline(cfg, device=dev).ground(path, "a red square", render=False)
+           for dev in ("cuda", "cpu")}
+    assert resize_normalize.launches == before + 1
+    size = np.array([160, 96, 160, 96], np.float64)
+    np.testing.assert_allclose(np.asarray(out["cuda"]["boxes"]) / size,
+                               np.asarray(out["cpu"]["boxes"]) / size, atol=1e-3)

@@ -1,0 +1,209 @@
+"""Typed configuration, the port's copy of ``tubedetr_tpu/config.py``.
+
+The field set is the JAX package's, so one keyword dict configures both
+(the parity tests rely on that). Fields that only the JAX package's training,
+mesh or TPU paths read are kept for that interchange; the port ignores them.
+``validate()`` additionally rejects the settings this port does not run yet,
+naming the ROADMAP item that will bring each.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import List
+
+
+@dataclass
+class TubeDETRConfig:
+    # ---- datasets ----------------------------------------------------------
+    combine_datasets: List[str] = field(default_factory=list)
+    combine_datasets_val: List[str] = field(default_factory=list)
+    v2: bool = False
+    vidstg_ann_path: str = ""
+    vidstg_vid_path: str = ""
+    hcstvg_ann_path: str = ""
+    hcstvg_vid_path: str = ""
+
+    # ---- training hyper-parameters ----------------------------------------
+    run_name: str = ""
+    save_dir: str = ""
+    lr: float = 5e-5
+    lr_backbone: float = 1e-5
+    text_encoder_lr: float = 5e-5
+    batch_size: int = 1
+    grad_accum: int = 1
+    weight_decay: float = 1e-4
+    epochs: int = 10
+    lr_drop: int = 10
+    epoch_chunks: int = -1
+    optimizer: str = "adam"
+    clip_max_norm: float = 0.1
+    eval_skip: int = 1
+    schedule: str = "linear_with_warmup"
+    ema: bool = False
+    ema_decay: float = 0.9998
+    fraction_warmup_steps: float = 0.01
+
+    # ---- model -------------------------------------------------------------
+    freeze_text_encoder: bool = False
+    text_encoder_type: str = "roberta-base"
+    backbone: str = "resnet101"
+    dilation: bool = False
+    position_embedding: str = "sine"
+    enc_layers: int = 6
+    dec_layers: int = 6
+    dim_feedforward: int = 2048
+    hidden_dim: int = 256
+    dropout: float = 0.1
+    nheads: int = 8
+    num_queries: int = 1
+    nq_select: str = "first"
+    nq_match: str = "frame"
+    pass_pos_and_query: bool = True
+    freeze_backbone: bool = False
+
+    # ---- losses ------------------------------------------------------------
+    aux_loss: bool = True
+    sigma: int = 1
+    guided_attn: bool = True
+    sted: bool = True
+    bbox_loss_coef: float = 5.0
+    giou_loss_coef: float = 2.0
+    sted_loss_coef: float = 10.0
+    guided_attn_loss_coef: float = 1.0
+    objectness_loss_coef: float = 1.0
+
+    # ---- video / temporal --------------------------------------------------
+    resolution: int = 224
+    video_max_len: int = 200
+    video_max_len_train: int = 200
+    stride: int = 5
+    fps: int = 5
+    tmp_crop: bool = True
+    tmp_loc: bool = True
+
+    # ---- ablations ---------------------------------------------------------
+    fast: bool = True
+    fast_mode: str = ""
+    learn_time_embed: bool = False
+    no_time_embed: bool = False
+    no_tsa: bool = False
+    rd_init_tsa: bool = False
+
+    # ---- run control -------------------------------------------------------
+    test: bool = False
+    evaluate_only: bool = False
+    resume: str = ""
+    load: str = ""
+    output_dir: str = ""
+    device: str = "cuda"
+    seed: int = 42
+    num_workers: int = 3
+    world_size: int = 1
+    tb_dir: str = ""
+
+    # ---- synthetic dataset shape -------------------------------------------
+    synthetic_train_size: int = 0
+    synthetic_val_size: int = 0
+    synthetic_t: int = 0
+    synthetic_res: int = 0
+
+    # ---- demo / serving ----------------------------------------------------
+    caption_example: str = ""
+    video_example: str = ""
+    start_example: float = -1.0
+    end_example: float = -1.0
+    port: int = 8080
+
+    # ---- static shapes and precision ---------------------------------------
+    max_text_len: int = 32  # static token-length bucket
+    compute_dtype: str = "float32"  # float32 | bfloat16
+    frames_dtype: str = "float32"
+    compact_pad_masks: bool = False
+    device_prefetch: int = 0
+    mesh_data: int = 1
+    mesh_time: int = 1
+    mesh_model: int = 1
+    tokenizer_path: str = ""  # dir with vocab.json + merges.txt
+    text_vocab_size: int = 50265
+    remat_backbone: bool = True
+    remat_policy: str = "full"
+    scan_backbone_blocks: bool = True
+    space_to_depth_stem: bool = False
+    share_backbone_inference: bool = True  # one backbone pass serves fast+slow
+    share_backbone_train: bool = True
+    backbone_quant: str = "none"
+    fused_bottleneck: bool = False
+    serve_max_batch: int = 1
+    serve_batch_window_ms: float = 5.0
+    qscales_dir: str = ""
+    calibrate: bool = False
+    unroll_quant_fast: bool = False
+    log_quant_drift: bool = False
+    recalibrate_each_epoch: bool = False
+    async_checkpoint: bool = False
+    shard_optimizer_state: bool = False
+    shard_params: bool = False
+    backbone_quant_frozen: str = "none"
+    backbone_quant_fast: str = "none"
+    # text encoder dims (roberta-base defaults; shrink for tests)
+    text_hidden_size: int = 768
+    text_layers: int = 12
+    text_heads: int = 12
+    text_ffn: int = 3072
+    text_max_positions: int = 514
+
+    def replace(self, **kw) -> "TubeDETRConfig":
+        return dataclasses.replace(self, **kw)
+
+    def validate(self) -> "TubeDETRConfig":
+        if self.fast_mode not in ("", "gating", "transformer", "pool", "noslow"):
+            raise ValueError(f"unknown fast_mode {self.fast_mode!r}")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
+        if self.hidden_dim % self.nheads != 0:
+            raise ValueError("hidden_dim must be a multiple of nheads")
+        if self.num_queries < 1:
+            raise ValueError(f"num_queries must be >= 1, got {self.num_queries}")
+        if self.fast_mode and not self.fast:
+            raise ValueError("fast_mode requires fast=True")
+        if not self.pass_pos_and_query:
+            raise NotImplementedError(
+                "--no_pass_pos_and_query is non-functional in the reference"
+            )
+        # settings the port does not run yet, each with its ROADMAP item
+        if self.backbone_quant != "none" or self.fused_bottleneck:
+            raise NotImplementedError(
+                f"backbone_quant={self.backbone_quant!r} / fused_bottleneck: "
+                "int8 backbones and the fused bottleneck kernel (K2) come "
+                "with ROADMAP queue 1 'int8_static inference backbone + K2'"
+            )
+        if self.backbone.startswith("timm_") or self.backbone.endswith("-gn"):
+            raise NotImplementedError(
+                f"backbone {self.backbone!r}: the timm and GroupNorm "
+                "backbones come with ROADMAP queue 1 'Secondary features'"
+            )
+        if self.fast_mode != "":
+            raise NotImplementedError(
+                f"fast_mode={self.fast_mode!r}: the other fast-branch "
+                "variants come with ROADMAP queue 1 'Other fast_modes and "
+                "num_queries > 1'"
+            )
+        if self.num_queries > 1:
+            raise NotImplementedError(
+                "num_queries > 1 comes with ROADMAP queue 1 'Other "
+                "fast_modes and num_queries > 1'"
+            )
+        if (
+            self.position_embedding != "sine"
+            or self.no_tsa
+            or self.learn_time_embed
+            or self.no_time_embed
+        ):
+            raise NotImplementedError(
+                "learned position embeddings, --no_tsa, --learn_time_embed "
+                "and --no_time_embed come with ROADMAP queue 1 'Secondary "
+                "features'"
+            )
+        return self

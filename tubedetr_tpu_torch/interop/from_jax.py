@@ -1,0 +1,237 @@
+"""Weights into the port: from the JAX package's variable trees, from a seed,
+or from a reference TubeDETR ``.pth``.
+
+``params_from_jax`` is the inverse of the JAX package's
+``interop/torch_convert.py:convert_tubedetr``: it takes the ``{"params",
+"buffers"}`` trees (as numpy) and returns the port's ``state_dict``, whose
+names are the reference checkpoint's. Layout rules:
+
+* Conv kernel HWIO ``(kH, kW, I, O)``  -> ``Conv2d.weight`` OIHW
+* Dense kernel ``(in, out)``           -> ``Linear.weight`` ``(out, in)``
+* attention ``q_proj``/``k_proj``/``v_proj`` -> packed ``in_proj_weight``/``in_proj_bias``
+* the ``input_proj`` Dense ``(2048, D)`` -> a 1x1 ``Conv2d`` ``(D, 2048, 1, 1)``
+* FrozenBatchNorm statistics come from the ``buffers`` collection
+* ResNet stage tails in either layout: scanned (``layer{i}_rest/block``,
+  stacked on axis 0) or unrolled (``layer{i}_{j}``).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+Tree = Dict
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
+def _linear(tree: Tree, name: str) -> Dict[str, np.ndarray]:
+    return {f"{name}.weight": _np(tree["kernel"]).T, f"{name}.bias": _np(tree["bias"])}
+
+
+def _layernorm(tree: Tree, name: str) -> Dict[str, np.ndarray]:
+    return {f"{name}.weight": _np(tree["scale"]), f"{name}.bias": _np(tree["bias"])}
+
+
+def _conv(tree: Tree, name: str) -> Dict[str, np.ndarray]:
+    return {f"{name}.weight": _np(tree["kernel"]).transpose(3, 2, 0, 1)}
+
+
+def _frozen_bn(tree: Tree, name: str) -> Dict[str, np.ndarray]:
+    return {
+        f"{name}.{k}": _np(tree[k])
+        for k in ("weight", "bias", "running_mean", "running_var")
+    }
+
+
+def _mha(tree: Tree, name: str) -> Dict[str, np.ndarray]:
+    qkv = [tree[p] for p in ("q_proj", "k_proj", "v_proj")]
+    return {
+        f"{name}.in_proj_weight": np.concatenate([_np(p["kernel"]).T for p in qkv]),
+        f"{name}.in_proj_bias": np.concatenate([_np(p["bias"]) for p in qkv]),
+        **_linear(tree["out_proj"], f"{name}.out_proj"),
+    }
+
+
+def _mlp(tree: Tree, name: str) -> Dict[str, np.ndarray]:
+    out = {}
+    for key in sorted(tree, key=lambda k: int(k.split("_")[1])):
+        out.update(_linear(tree[key], f"{name}.layers.{key.split('_')[1]}"))
+    return out
+
+
+def _bottleneck(p: Tree, b: Tree, name: str) -> Dict[str, np.ndarray]:
+    out = {}
+    for i in (1, 2, 3):
+        out.update(_conv(p[f"conv{i}"], f"{name}.conv{i}"))
+        out.update(_frozen_bn(b[f"bn{i}"], f"{name}.bn{i}"))
+    if "downsample_conv" in p:
+        out.update(_conv(p["downsample_conv"], f"{name}.downsample.0"))
+        out.update(_frozen_bn(b["downsample_bn"], f"{name}.downsample.1"))
+    return out
+
+
+def _unstack(tree: Tree, j: int) -> Tree:
+    if isinstance(tree, dict):
+        return {k: _unstack(v, j) for k, v in tree.items()}
+    return np.asarray(tree)[j]
+
+
+def _tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+def resnet_from_jax(params: Tree, buffers: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX ``ResNet`` params + FrozenBN buffers -> ``ResNet`` state_dict."""
+    out = {**_conv(params["conv1"], f"{prefix}conv1"), **_frozen_bn(buffers["bn1"], f"{prefix}bn1")}
+    for key in params:
+        m = re.fullmatch(r"layer(\d+)_(\d+|rest)", key)
+        if not m:
+            continue
+        li = m.group(1)
+        if m.group(2) == "rest":  # scanned tails: blocks 1.. stacked on axis 0
+            p, b = params[key]["block"], buffers[key]["block"]
+            n = np.asarray(p["conv1"]["kernel"]).shape[0]
+            for j in range(n):
+                out.update(_bottleneck(
+                    _unstack(p, j), _unstack(b, j), f"{prefix}layer{li}.{j + 1}"
+                ))
+        else:
+            out.update(_bottleneck(
+                params[key], buffers[key], f"{prefix}layer{li}.{m.group(2)}"
+            ))
+    return _tensors(out)
+
+
+def roberta_from_jax(p: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX ``RobertaModel`` params -> ``RobertaModel`` state_dict."""
+    out = {}
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        out[f"{prefix}embeddings.{name}.weight"] = _np(p[name]["embedding"])
+    out.update(_layernorm(p["embeddings_norm"], f"{prefix}embeddings.LayerNorm"))
+    i = 0
+    while f"layer_{i}" in p:
+        lp, base = p[f"layer_{i}"], f"{prefix}encoder.layer.{i}"
+        att = lp["attention"]
+        for src, dst in (("q_proj", "query"), ("k_proj", "key"), ("v_proj", "value")):
+            out.update(_linear(att[src], f"{base}.attention.self.{dst}"))
+        out.update(_linear(att["out_proj"], f"{base}.attention.output.dense"))
+        out.update(_layernorm(lp["attention_norm"], f"{base}.attention.output.LayerNorm"))
+        out.update(_linear(lp["intermediate"], f"{base}.intermediate.dense"))
+        out.update(_linear(lp["output"], f"{base}.output.dense"))
+        out.update(_layernorm(lp["output_norm"], f"{base}.output.LayerNorm"))
+        i += 1
+    return _tensors(out)
+
+
+def mha_from_jax(tree: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``MultiHeadAttention`` params -> ``MultiHeadAttention`` state_dict."""
+    return _tensors({k.lstrip("."): v for k, v in _mha(tree, "").items()})
+
+
+def transformer_from_jax(tr: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX ``TubeDETRTransformer`` params -> the port's ``TubeDETRTransformer``
+    state_dict, without its ``text_encoder`` (a sibling in the JAX tree)."""
+    sd = {
+        **_linear(tr["resizer"]["fc"], f"{prefix}resizer.fc"),
+        **_layernorm(tr["resizer"]["layer_norm"], f"{prefix}resizer.layer_norm"),
+    }
+    i = 0
+    while f"layer_{i}" in tr["encoder"]:
+        lp, name = tr["encoder"][f"layer_{i}"], f"{prefix}encoder.layers.{i}"
+        sd.update(_mha(lp["self_attn"], f"{name}.self_attn"))
+        for k in ("linear1", "linear2"):
+            sd.update(_linear(lp[k], f"{name}.{k}"))
+        for k in ("norm1", "norm2"):
+            sd.update(_layernorm(lp[k], f"{name}.{k}"))
+        i += 1
+    i = 0
+    while f"layer_{i}" in tr["decoder"]:
+        lp, name = tr["decoder"][f"layer_{i}"], f"{prefix}decoder.layers.{i}"
+        for k in ("self_attn", "cross_attn_image"):
+            sd.update(_mha(lp[k], f"{name}.{k}"))
+        for k in ("linear1", "linear2"):
+            sd.update(_linear(lp[k], f"{name}.{k}"))
+        for k in ("norm1", "norm3", "norm4"):
+            sd.update(_layernorm(lp[k], f"{name}.{k}"))
+        i += 1
+    sd.update(_layernorm(tr["decoder"]["norm"], f"{prefix}decoder.norm"))
+    for k in ("fast_encoder", "fast_residual"):
+        if k in tr:
+            sd.update(_linear(tr[k], f"{prefix}{k}"))
+    return _tensors(sd)
+
+
+def params_from_jax(variables: Tree, cfg) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``{"params", "buffers"}`` variables -> the port's
+    ``state_dict`` (float32 CPU tensors) for ``TubeDETR(cfg)``."""
+    p = variables["params"]
+    sd = resnet_from_jax(p["backbone"], variables["buffers"]["backbone"], "backbone.0.body.")
+    sd.update(roberta_from_jax(p["text_encoder"], "transformer.text_encoder."))
+    sd.update(transformer_from_jax(p["transformer"], "transformer."))
+    heads = {
+        "input_proj.weight": _np(p["input_proj"]["kernel"]).T[:, :, None, None],
+        "input_proj.bias": _np(p["input_proj"]["bias"]),
+        "query_embed.weight": _np(p["query_embed"]),
+        **_mlp(p["bbox_embed"], "bbox_embed"),
+    }
+    if cfg.sted:
+        heads.update(_mlp(p["sted_embed"], "sted_embed"))
+    sd.update(_tensors(heads))
+    n_enc = sum(k.endswith(".self_attn.in_proj_weight") and ".encoder." in k for k in sd)
+    n_dec = sum(k.endswith(".cross_attn_image.in_proj_weight") for k in sd)
+    if (n_enc, n_dec) != (cfg.enc_layers, cfg.dec_layers) or cfg.fast != (
+        "transformer.fast_encoder.weight" in sd
+    ):
+        raise ValueError(
+            f"JAX variables hold {n_enc} encoder / {n_dec} decoder layers, fast="
+            f"{'transformer.fast_encoder.weight' in sd}; the config wants "
+            f"{cfg.enc_layers} / {cfg.dec_layers}, fast={cfg.fast}"
+        )
+    return sd
+
+
+def fabricate_state_dict(model: torch.nn.Module, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """Placeholder weights from a numpy seed, by the fill rules of the JAX
+    package's ``apps/pipeline.py:fabricate_variables``: running variances,
+    norm scales and 1-D weights are ones, running means and biases zeros,
+    everything else ``N(0, 0.02^2)``. A checkpoint load replaces them."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, t in model.state_dict().items():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "running_mean" or leaf.endswith("bias"):
+            v = np.zeros(t.shape, np.float32)
+        elif leaf == "running_var" or (leaf == "weight" and t.dim() == 1):
+            v = np.ones(t.shape, np.float32)
+        else:
+            v = rng.standard_normal(t.shape, dtype=np.float32) * np.float32(0.02)
+        out[name] = torch.from_numpy(v)
+    return out
+
+
+def load_reference_pth(model: torch.nn.Module, path: str) -> Tuple[list, list]:
+    """Load a reference TubeDETR checkpoint into ``model``, non-strict: the
+    EMA weights when the file has them, else ``model``, else the file as a
+    bare state_dict; ``query_embed`` truncated to the model's queries and the
+    regenerated sine time-embedding buffer dropped. Returns the (missing,
+    unexpected) key lists; a shape mismatch raises."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if ckpt.get("model_ema") is not None:
+        sd = ckpt["model_ema"]
+    elif "model" in ckpt:
+        sd = ckpt["model"]
+    else:
+        sd = ckpt
+    sd = dict(sd)
+    nq = model.query_embed.weight.shape[0]
+    if "query_embed.weight" in sd and sd["query_embed.weight"].shape[0] > nq:
+        sd["query_embed.weight"] = sd["query_embed.weight"][:nq]
+    sd.pop("transformer.time_embed.te", None)
+    result = model.load_state_dict(sd, strict=False)
+    return list(result.missing_keys), list(result.unexpected_keys)

@@ -1,0 +1,190 @@
+"""TubeDETR inference model (counterpart of ``tubedetr_tpu/models/tubedetr.py``).
+
+Module names follow the reference ``state_dict`` grammar: ``backbone.0.body.*``
+(the ResNet trunk), ``transformer.*`` (text encoder, encoder, decoder, fast
+branch), ``input_proj`` (a 1x1 conv), ``query_embed``, ``bbox_embed`` and
+``sted_embed``; a reference ``.pth`` loads as it is (``interop/from_jax.py:
+load_reference_pth``). Inputs are normalized NHWC frames plus masks, as
+``data/collate.py`` builds them; the text is pre-tokenized to static length.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from tubedetr_tpu_torch.config import TubeDETRConfig
+from tubedetr_tpu_torch.core.embeddings import position_embedding_sine
+from tubedetr_tpu_torch.core.masking import downsample_pad_mask
+from tubedetr_tpu_torch.models.layers import MLP
+from tubedetr_tpu_torch.models.resnet import FrozenBatchNorm2d, ResNet
+from tubedetr_tpu_torch.models.roberta import RobertaConfig
+from tubedetr_tpu_torch.models.transformer import TubeDETRTransformer
+from tubedetr_tpu_torch.utils.device import resolve_device
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class _Backbone(nn.Module):
+    """Holds the trunk as ``body``, the reference's ``backbone.0.body`` path."""
+
+    def __init__(self, body: ResNet):
+        super().__init__()
+        self.body = body
+
+
+class TubeDETR(nn.Module):
+    def __init__(self, cfg: TubeDETRConfig):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.hidden_dim
+        self.backbone = nn.ModuleList([_Backbone(ResNet(cfg.backbone, cfg.dilation))])
+        self.input_proj = nn.Conv2d(2048, d, kernel_size=1)
+        self.query_embed = nn.Embedding(cfg.num_queries, d)
+        self.transformer = TubeDETRTransformer(
+            d_model=d,
+            nheads=cfg.nheads,
+            enc_layers=cfg.enc_layers,
+            dec_layers=cfg.dec_layers,
+            dim_feedforward=cfg.dim_feedforward,
+            video_max_len=cfg.video_max_len_train,
+            stride=cfg.stride,
+            fast=cfg.fast,
+            text_cfg=RobertaConfig(
+                vocab_size=cfg.text_vocab_size,
+                hidden_size=cfg.text_hidden_size,
+                num_hidden_layers=cfg.text_layers,
+                num_attention_heads=cfg.text_heads,
+                intermediate_size=cfg.text_ffn,
+                max_position_embeddings=cfg.text_max_positions,
+            ),
+        )
+        self.bbox_embed = MLP(d, d, 4, 3)
+        if cfg.sted:
+            self.sted_embed = MLP(d, d, 2, 2)
+
+    def cast_compute(self, dtype: torch.dtype) -> "TubeDETR":
+        """Cast parameters to the compute dtype. FrozenBatchNorm buffers stay
+        float32: their fold runs in float32, as in the JAX package."""
+        for m in self.modules():
+            if isinstance(m, FrozenBatchNorm2d):
+                continue
+            for p in m.parameters(recurse=False):
+                p.data = p.data.to(dtype)
+        return self
+
+    def encode_frames(self, frames: torch.Tensor, pad_mask: torch.Tensor):
+        """Backbone + projection over a flat (N, H, W, 3) frame batch.
+
+        Returns tokens (N, h*w, D), feature pad mask (N, h*w) and the sine
+        position embedding (N, h*w, D); ``pad_mask`` is the (N, H, W) pixel
+        pad mask."""
+        dtype = self.input_proj.weight.dtype
+        feats = self.backbone[0].body(frames.to(dtype))  # (N, h, w, 2048)
+        n, h, w, _ = feats.shape
+        d = self.cfg.hidden_dim
+        fmask = downsample_pad_mask(pad_mask, h, w)
+        pos = position_embedding_sine(fmask, num_pos_feats=d // 2, dtype=dtype)
+        src = F.linear(feats, self.input_proj.weight[:, :, 0, 0], self.input_proj.bias)
+        return src.reshape(n, h * w, d), fmask.reshape(n, h * w), pos.reshape(n, h * w, d)
+
+    def forward(
+        self,
+        frames_slow: torch.Tensor,  # (B, Tc, H, W, 3) normalized
+        slow_pad_mask: torch.Tensor,  # (B, Tc, H, W) True = pad
+        tokens: torch.Tensor,  # (B, L) int
+        text_pad_mask: torch.Tensor,  # (B, L) True = pad
+        durations: torch.Tensor,  # (B,) int
+        frames_fast: Optional[torch.Tensor] = None,  # (B, T, H, W, 3)
+        fast_pad_mask: Optional[torch.Tensor] = None,  # (B, T, H, W)
+    ) -> dict:
+        cfg = self.cfg
+        d = cfg.hidden_dim
+        k = max(cfg.stride, 1)
+        b, tc = frames_slow.shape[:2]
+        t = frames_fast.shape[1] if frames_fast is not None else min(tc * k, cfg.video_max_len_train)
+        dev = frames_slow.device
+
+        # At inference the slow frames ARE the stride-k subsample of the fast
+        # frames (collate builds them so), so one backbone pass over the fast
+        # stream serves both: slow tokens are a ::k gather of the fast tokens.
+        share = (
+            cfg.share_backbone_inference
+            and cfg.fast
+            and frames_fast is not None
+            and cfg.stride > 0
+            and t >= (tc - 1) * cfg.stride + 1
+        )
+        fast_src = None
+        if share:
+            fsrc, fmask, fpos = self.encode_frames(
+                frames_fast.flatten(0, 1), fast_pad_mask.flatten(0, 1)
+            )
+            hw = fsrc.shape[1]
+            fast_src = fsrc.reshape(b, t, hw, d)
+            frame_pad = fmask.reshape(b, t, hw)
+            src = fast_src[:, :: cfg.stride][:, :tc]
+            src_mask = frame_pad[:, :: cfg.stride][:, :tc]
+            pos = fpos.reshape(b, t, hw, d)[:, :: cfg.stride][:, :tc]
+        else:
+            src, src_mask, pos = self.encode_frames(
+                frames_slow.flatten(0, 1), slow_pad_mask.flatten(0, 1)
+            )
+            hw = src.shape[1]
+            src, src_mask, pos = (
+                src.reshape(b, tc, hw, d), src_mask.reshape(b, tc, hw), pos.reshape(b, tc, hw, d)
+            )
+            if cfg.fast and frames_fast is not None:
+                fsrc, fmask, _ = self.encode_frames(
+                    frames_fast.flatten(0, 1), fast_pad_mask.flatten(0, 1)
+                )
+                fast_src = fsrc.reshape(b, t, hw, d)
+                frame_pad = fmask.reshape(b, t, hw)
+            else:  # replicate each clip's feature mask onto its frames
+                frame_pad = src_mask[:, torch.arange(t, device=dev) // k]
+
+        # temporal padding: clips past ceil(dur/k) and frames past the
+        # duration are fully masked; clip position 0 always stays valid
+        n_clips_valid = -(-durations // k)
+        clip_pad = torch.arange(tc, device=dev)[None] >= n_clips_valid[:, None]
+        src_mask = src_mask | clip_pad[:, :, None]
+        src_mask[:, :, 0] = False  # avoid empty masks
+        time_pad = torch.arange(t, device=dev)[None] >= durations[:, None]
+        frame_pad = frame_pad | time_pad[:, :, None]
+
+        text_memory = self.transformer.text_encoder(tokens, text_pad_mask)
+        tr = self.transformer(
+            src=src,
+            src_pad_mask=src_mask,
+            pos_embed=pos,
+            text_memory=text_memory,
+            text_pad_mask=text_pad_mask,
+            query_embed=self.query_embed.weight,
+            durations=durations,
+            frame_pad_mask=frame_pad,
+            fast_src=fast_src,
+        )
+        hs = tr["hs"]  # (n_layers, B, T, D)
+        coord = torch.sigmoid(self.bbox_embed(hs)).float()
+        out = {
+            "pred_boxes": coord[-1],
+            "aux_pred_boxes": coord[:-1],
+            "weights": tr["tsa_weights"][-1].float(),
+            "aux_weights": tr["tsa_weights"][:-1].float(),
+            "ca_weights": tr["cross_weights"][-1].float(),
+        }
+        if cfg.sted:
+            sted = self.sted_embed(hs).float()
+            out["pred_sted"] = sted[-1]
+            out["aux_pred_sted"] = sted[:-1]
+        return out
+
+
+def build_model(cfg: TubeDETRConfig, device="cuda") -> TubeDETR:
+    """The inference model on ``device`` (the card unless the caller asks
+    for the CPU), in float32; ``TubeDETR.cast_compute`` moves it to the
+    compute dtype once weights are in place."""
+    return TubeDETR(cfg.validate()).eval().to(resolve_device(device))

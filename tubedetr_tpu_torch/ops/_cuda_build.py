@@ -1,0 +1,97 @@
+"""Build the hand-written CUDA kernels at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, ``build/lib<name>.so`` inside this package
+(listed in ``.gitignore``). A library is rebuilt when its source is newer.
+``build_all`` starts one ``nvcc`` per source at once and waits for all of
+them. Nothing here runs at import time: the CPU tests import every module of
+the port on a machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Iterable
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD = os.path.join(_PKG, "build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
+            "tubedetr_tpu_torch build on a machine with the CUDA toolkit"
+        )
+    return path
+
+
+def sources() -> list:
+    """Names of every kernel source under ``csrc/``."""
+    return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
+
+
+def _paths(name: str):
+    return (
+        os.path.join(CSRC, f"{name}.cu"),
+        os.path.join(BUILD, f"lib{name}.so"),
+        os.path.join(BUILD, f"lib{name}.log"),
+    )
+
+
+def _stale(name: str) -> bool:
+    src, lib, _ = _paths(name)
+    return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src)
+
+
+def build_all(names: Iterable[str]) -> Dict[str, str]:
+    """Compile every stale library among ``names`` in parallel; returns the
+    compiler output (``-Xptxas -v``: registers, spills) of each build."""
+    os.makedirs(BUILD, exist_ok=True)
+    procs = {}
+    for name in names:
+        if not _stale(name):
+            continue
+        src, lib, _ = _paths(name)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    logs = {}
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        _, lib, log = _paths(name)
+        with open(log, "w") as f:
+            f.write(out)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+        os.replace(tmp, lib)  # atomic: concurrent loaders never see a partial file
+        logs[name] = out
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``lib<name>.so``, built first if stale."""
+    with _lock:
+        if name not in _loaded:
+            build_all([name])
+            _loaded[name] = ctypes.CDLL(_paths(name)[1])
+        return _loaded[name]

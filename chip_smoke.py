@@ -9,16 +9,20 @@ line:
 1. the card's name and power limit (``nvidia-smi``) and the CUDA version;
 2. build every hand-written kernel from ``tubedetr_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together);
-3. hold each kernel to its plain PyTorch version on the card at the serving
-   shape, and time the kernel, the plain version and a PyTorch yardstick
-   with CUDA events;
-4. the main path at full width: ``GroundingPipeline`` with the bench
+3. hold each kernel to its plain PyTorch version on the card and time the
+   kernel, the plain version and a PyTorch yardstick with CUDA events: K1
+   (resize+normalize) at the serving shape, K2 (the fused int8 bottleneck)
+   exactly at the four ResNet-101 tail shapes at 352x608 and the DC5 one,
+   timed at N=400 frames;
+4. the main paths at full width: ``GroundingPipeline`` with the bench
    headline model (ResNet-101, RoBERTa-base, res 352, T=200, stride 4, fast
    and sted on, weights from a seed) serves two requests through
-   ``ground_many`` and one through ``ground``, in bfloat16 and in float32,
-   with every kernel's launch count zeroed just before and read just after;
-5. the same small request through the pipeline on the card and on the CPU
-   (the plain path), which must agree.
+   ``ground_many`` and one through ``ground``: float bf16, float f32,
+   int8_static + fused_bottleneck (K2 on every stride-1 tail) in bf16, and
+   int8_static unfused in bf16. Each path's kernel launch counts are zeroed
+   just before it and read just after;
+5. small requests through the pipeline on the card and on the CPU (the
+   plain path), float and int8_static + fused, which must agree.
 
 Then one ``kernels`` JSON line, the ``nvidia-smi`` line again, and, last, the
 ``ok`` JSON line. There is no CPU path: without a card the script exits 2.
@@ -37,6 +41,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
 
 # K1 at the serving shape: 200 frames of 360x640 -> 330x586 at res 352
 K1_SHAPE = (200, 360, 640, 3)
@@ -45,6 +50,26 @@ K1_CROP = (12, 20, 300, 560)
 K1_FLOPS_PER_OUT = 11  # 6 for the two row lerps, 3 for the column lerp, 2 affine
 F32_ATOL = 1e-4  # two f32 contractions summed in another order than the gather
 SMALL_ATOL = 1e-3  # card (cuDNN, cuBLAS, no TF32) vs CPU through a whole small model
+
+# K2: the ResNet-101 stride-1 tails at 352x608 (C, P, H, W, dilation, tails
+# per backbone pass) and the DC5 layer4 (checked, not on the main path)
+K2_STAGES = {
+    "layer1": (256, 64, 88, 152, 1, 2),
+    "layer2": (512, 128, 44, 76, 1, 3),
+    "layer3": (1024, 256, 22, 38, 1, 22),
+    "layer4": (2048, 512, 11, 19, 1, 2),
+    "layer4-dc5": (2048, 512, 22, 38, 2, 0),
+}
+K2_CHECK_FRAMES = 16
+K2_TIME_FRAMES = 400  # B=2 x T=200: one shared backbone pass
+K2_PER_PASS = 29  # 2 + 3 + 22 + 2 tails in ResNet-101
+# card vs CPU on the small int8 request, same scales and frames: the float
+# stem conv (cuDNN vs oneDNN) sums in another order, so a value one ulp from
+# an int8 rounding boundary flips one step of that tensor's scale, and the
+# flip moves what follows it. The trunk's output may differ by at most
+# SMALL_INT8_STEPS steps of its own scale; the heads' outputs by the atol.
+SMALL_INT8_STEPS = 4
+SMALL_INT8_ATOL = {"pred_boxes": 1e-3, "pred_sted": 1e-3}
 
 
 def fail(msg: str) -> None:
@@ -174,7 +199,136 @@ def phase_k1():
     }
 
 
-def full_width_cfg(dtype: str):
+def k2_block(c: int, p: int, h: int, w: int, d: int, n: int, seed: int):
+    """A seeded int8 stream on the card and the fold of one bottleneck whose
+    activation maxima are calibrated on it, as the pipeline calibrates (the
+    float block on the dequantized stream)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from tubedetr_tpu_torch.ops.fused_bottleneck import fold_bottleneck
+
+    rng = np.random.RandomState(seed)
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xq = torch.randint(0, 128, (n, h, w, c), dtype=torch.int8, device=dev, generator=gen)
+    k = {
+        "conv1": rng.randn(1, 1, c, p) / np.sqrt(c),
+        "conv2": rng.randn(3, 3, p, p) / np.sqrt(9 * p),
+        "conv3": rng.randn(1, 1, p, c) / np.sqrt(p),
+    }
+    kernels = {name: torch.from_numpy(v.astype(np.float32)).to(dev) for name, v in k.items()}
+    norms = {
+        name: (torch.from_numpy((0.5 + rng.rand(f)).astype(np.float32)).to(dev),
+               torch.from_numpy((0.1 * rng.randn(f)).astype(np.float32)).to(dev))
+        for name, f in (("bn1", p), ("bn2", p), ("bn3", c))
+    }
+    sx = torch.tensor(0.05, device=dev)
+    with torch.no_grad():  # float maxima on a few frames
+        xf = xq[:4].float() * sx
+        y1 = F.relu(xf @ kernels["conv1"][0, 0] * norms["bn1"][0] + norms["bn1"][1])
+        y2 = F.conv2d(y1.permute(0, 3, 1, 2), kernels["conv2"].permute(3, 2, 0, 1),
+                      padding=d, dilation=d).permute(0, 2, 3, 1)
+        y2 = F.relu(y2 * norms["bn2"][0] + norms["bn2"][1])
+        y3 = F.relu(y2 @ kernels["conv3"][0, 0] * norms["bn3"][0] + norms["bn3"][1] + xf)
+    fold = fold_bottleneck(sx, kernels, norms, y1.amax(), y2.amax(), y3.amax())
+    return xq, fold
+
+
+def phase_k2():
+    """K2 against its plain version: exact at every stage shape with 16
+    frames, then timed at N=400 for the four main-path stages; returns the
+    kernels-line entry (launch count filled in after the main path)."""
+    import torch
+
+    from tubedetr_tpu_torch.ops.fused_bottleneck import (
+        band_rows,
+        fused_bottleneck_block,
+        fused_bottleneck_plain,
+        smem_bytes,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = {}
+    for i, (name, (c, p, h, w, d, tails)) in enumerate(K2_STAGES.items()):
+        xq, fold = k2_block(c, p, h, w, d, K2_CHECK_FRAMES, seed=10 + i)
+        out, so = fused_bottleneck_block(xq, fold, d)
+        ref = fused_bottleneck_plain(xq, fold, d)
+        torch.cuda.synchronize()
+        cpu_fold = type(fold)(**{k: v.cpu() for k, v in vars(fold).items()})
+        ref_cpu = fused_bottleneck_plain(xq.cpu(), cpu_fold, d)
+        err = (out.int() - ref.int()).abs().max().item()
+        case = {
+            "shape": {"N": K2_CHECK_FRAMES, "H": h, "W": w, "C": c, "P": p, "dilation": d},
+            "band_rows": band_rows(h, w, p, d),
+            "smem_bytes": smem_bytes(w, p, d, band_rows(h, w, p, d)),
+            "max_abs_err": err,
+            "tolerance": "exact",
+            "equal_cpu_plain": bool(torch.equal(ref.cpu(), ref_cpu)),
+            "out_mean": out.float().mean().item(),
+            "out_saturated": (out == 127).float().mean().item(),
+            "out_zero": (out == 0).float().mean().item(),
+        }
+        if err != 0 or not torch.equal(out, ref) or float(so) != float(fold.so):
+            fail(f"K2 {name}: differs from its plain version, max |err| {err}")
+        if not case["equal_cpu_plain"]:
+            fail(f"K2 {name}: the plain version differs between the card and the CPU")
+        del xq, out, ref, ref_cpu
+        if tails:  # a main-path stage: time it at the serving batch
+            n = K2_TIME_FRAMES
+            xq, fold = k2_block(c, p, h, w, d, n, seed=20 + i)
+            weights = c * p + 9 * p * p + p * c
+            nbytes = 2 * n * h * w * c + weights + 4 * (4 * p + 2 * c + 1)
+            ops = 2 * n * h * w * weights
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / INT8_OPS_PER_S * 1e3
+            case.update({
+                "timed_frames": n,
+                "tails_per_pass": tails,
+                "ms": cuda_ms(lambda: fused_bottleneck_block(xq, fold, d), groups=11, per_group=5),
+                "plain_ms": cuda_ms(lambda: fused_bottleneck_plain(xq, fold, d),
+                                    groups=5, per_group=2),
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            })
+            case["tops"] = ops / case["ms"] / 1e9
+            del xq
+            torch.cuda.empty_cache()
+        cases[name] = case
+        print(f"[k2] {name}: {json.dumps(case)}", flush=True)
+    timed = [v for v in cases.values() if "ms" in v]
+
+    def per_pass(key):
+        return sum(v[key] * v["tails_per_pass"] for v in timed)
+
+    ms, bound = per_pass("ms"), per_pass("bound_ms")
+    by_ops = sum(v["tails_per_pass"] * v["bound_ms"] for v in timed
+                 if v["bound_by"] == "operations")
+    entry = {
+        "name": "fused_bottleneck",
+        "route": "cuda",
+        "source": "tubedetr_tpu_torch/csrc/fused_bottleneck.cu",
+        "replaces": "tubedetr_tpu/ops/fused_bottleneck.py:60",
+        "launches": None,
+        "max_abs_err": max(v["max_abs_err"] for v in cases.values()),
+        # one ResNet-101 backbone pass at B=2, T=200: 29 launches summed
+        "ms": ms,
+        "plain_ms": per_pass("plain_ms"),
+        "bound_ms": bound,
+        "bound_by": "operations" if by_ops >= bound - by_ops else "bytes",
+        # no one PyTorch call computes a whole int8 bottleneck: the yardstick
+        # is the plain version, the unfused int8 route on cuBLASLt
+        "library_ms": per_pass("plain_ms"),
+        "per": f"one backbone pass: {K2_PER_PASS} launches at N={K2_TIME_FRAMES}",
+        "cases": cases,
+    }
+    print(f"[k2] per pass: {ms:.3f} ms (bound {bound:.3f} ms, plain {entry['plain_ms']:.3f} ms)",
+          flush=True)
+    return entry
+
+
+def full_width_cfg(dtype: str, **extra):
     from tubedetr_tpu_torch.config import TubeDETRConfig
 
     # bench.py's headline model: ResNet-101, RoBERTa-base (config defaults),
@@ -182,17 +336,96 @@ def full_width_cfg(dtype: str):
     return TubeDETRConfig(
         backbone="resnet101", resolution=352, video_max_len=200,
         video_max_len_train=200, stride=4, fast=True, sted=True,
-        guided_attn=False, aux_loss=False, dropout=0.0, compute_dtype=dtype,
+        guided_attn=False, aux_loss=False, dropout=0.0, compute_dtype=dtype, **extra,
     )
 
 
-def phase_main_path(workdir: str):
-    """Full-width serving in bf16 and f32; returns the K1 launch count."""
+def check_results(label, results, outputs):
     import numpy as np
+
+    for r in results:
+        s, e = r["sted"]
+        if not (0 <= s < e <= K1_SHAPE[0]):
+            fail(f"{label}: segment {r['sted']} outside [0, {K1_SHAPE[0]}]")
+        b = np.asarray(r["boxes"])
+        if b.shape != (K1_SHAPE[0], 4) or not np.isfinite(b).all():
+            fail(f"{label}: pixel boxes {b.shape}, finite={np.isfinite(b).all()}")
+    pb = outputs["pred_boxes"]
+    if pb.shape != (2, K1_SHAPE[0], 4) or not np.isfinite(pb).all():
+        fail(f"{label}: pred_boxes {pb.shape}, finite={np.isfinite(pb).all()}")
+    if pb.min() < 0 or pb.max() > 1:
+        fail(f"{label}: pred_boxes outside [0, 1]: [{pb.min()}, {pb.max()}]")
+    if not np.isfinite(outputs["pred_sted"]).all():
+        fail(f"{label}: non-finite pred_sted")
+
+
+def serve(label: str, cfg, reqs, b1: bool = True):
+    """One full-width serving path: build, cold B=2 (calibration apart),
+    warm B=2, warm B=1, the prepare / forward / backbone split and peak
+    memory. Kernel counts are zeroed just before and read just after.
+    Returns (stats, pred_boxes, launches by kernel, backbone passes)."""
     import torch
 
     from tubedetr_tpu_torch.apps.pipeline import GroundingPipeline
+    from tubedetr_tpu_torch.ops.fused_bottleneck import fused_bottleneck_block
     from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resize_normalize.launches = 0
+    fused_bottleneck_block.launches = 0
+    t0 = time.perf_counter()
+    pipe = GroundingPipeline(cfg)
+    build_s = time.perf_counter() - t0
+    prepared, passes = 0, 0
+
+    _, cold_s = synced(lambda: pipe.ground_many(reqs, render=False))
+    prepared, passes = prepared + 2, passes + 1
+    stats = {"build_s": build_s, "cold_ground_many_b2_s": cold_s,
+             "cold_calibration_s": pipe.calibration_s}
+    results, many_s = synced(lambda: pipe.ground_many(reqs, render=False))
+    prepared, passes = prepared + 2, passes + 1
+    stats.update({"warm_ground_many_b2_s": many_s, "warm_per_request_s_b2": many_s / 2})
+    if b1:
+        one, one_s = synced(lambda: pipe.ground(*reqs[0], render=False))
+        results.append(one)
+        prepared, passes = prepared + 1, passes + 1
+        stats["warm_ground_b1_s"] = one_s
+    stats["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # where a warm B=2 request goes: decode + upload + K1 + pad, the whole
+    # forward (collate included), and the backbone alone inside it
+    samples, prepare_s = synced(
+        lambda: [pipe.prepare(*r, video_id=f"req{i}")[0] for i, r in enumerate(reqs)]
+    )
+    frames_dtype = samples[0].frames.dtype
+    (outputs, batch), forward_s = synced(lambda: pipe.forward(samples))
+    with torch.inference_mode():
+        _, backbone_s = synced(lambda: pipe.model.encode_frames(
+            batch["frames_fast"].flatten(0, 1), batch["fast_pad_mask"].flatten(0, 1)
+        ))
+    prepared, passes = prepared + 2, passes + 2
+    launches = {"resize_normalize": resize_normalize.launches,
+                "fused_bottleneck": fused_bottleneck_block.launches}
+    del samples, batch
+    check_results(label, results, outputs)
+    stats.update({
+        "b2_prepare_s": prepare_s, "b2_forward_s": forward_s, "b2_backbone_s": backbone_s,
+        "frames_dtype": str(frames_dtype).replace("torch.", ""),
+        "segments": [r["sted"] for r in results],
+        "requests_prepared": prepared, "backbone_passes": passes, "launches": launches,
+    })
+    print(f"[main] {label}: " + json.dumps(stats), flush=True)
+    if launches["resize_normalize"] != prepared:
+        fail(f"{label}: K1 launched {launches['resize_normalize']} times for "
+             f"{prepared} requests prepared")
+    del pipe
+    return stats, outputs["pred_boxes"], launches, passes
+
+
+def phase_main_path(workdir: str):
+    """Full-width serving: float bf16 and f32, int8_static with K2, and
+    int8_static unfused. Returns the launch counts of the int8 + K2 path."""
+    import numpy as np
 
     rng = np.random.RandomState(0)
     paths = []
@@ -203,68 +436,43 @@ def phase_main_path(workdir: str):
     reqs = [(paths[0], "a man in a red shirt rides a horse", -1.0, -1.0),
             (paths[1], "the dog runs across the grass", -1.0, -1.0)]
 
-    resize_normalize.launches = 0
-    served = 0
     boxes = {}
     for dtype in ("bfloat16", "float32"):
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        pipe = GroundingPipeline(full_width_cfg(dtype))
-        build_s = time.perf_counter() - t0
-
-        _, cold_s = synced(lambda: pipe.ground_many(reqs, render=False))
-        results, many_s = synced(lambda: pipe.ground_many(reqs, render=False))
-        one, one_s = synced(lambda: pipe.ground(*reqs[0], render=False))
-        results.append(one)
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        # where a warm B=2 request goes: decode + upload + K1 + pad, the whole
-        # forward (collate included), and the backbone alone inside it
-        samples, prepare_s = synced(
-            lambda: [pipe.prepare(*r, video_id=f"req{i}")[0] for i, r in enumerate(reqs)]
-        )
-        (outputs, batch), forward_s = synced(lambda: pipe.forward(samples))
-        with torch.inference_mode():
-            _, backbone_s = synced(lambda: pipe.model.encode_frames(
-                batch["frames_fast"].flatten(0, 1), batch["fast_pad_mask"].flatten(0, 1)
-            ))
-        del samples, batch
-        served += 2 + 2 + 1 + 2
-        for r in results:
-            s, e = r["sted"]
-            if not (0 <= s < e <= K1_SHAPE[0]):
-                fail(f"{dtype}: segment {r['sted']} outside [0, {K1_SHAPE[0]}]")
-            b = np.asarray(r["boxes"])
-            if b.shape != (K1_SHAPE[0], 4) or not np.isfinite(b).all():
-                fail(f"{dtype}: pixel boxes {b.shape}, finite={np.isfinite(b).all()}")
-        pb = outputs["pred_boxes"]
-        if pb.shape != (2, K1_SHAPE[0], 4) or not np.isfinite(pb).all():
-            fail(f"{dtype}: pred_boxes {pb.shape}, finite={np.isfinite(pb).all()}")
-        if pb.min() < 0 or pb.max() > 1:
-            fail(f"{dtype}: pred_boxes outside [0, 1]: [{pb.min()}, {pb.max()}]")
-        if not np.isfinite(outputs["pred_sted"]).all():
-            fail(f"{dtype}: non-finite pred_sted")
-        boxes[dtype] = pb
-        print(f"[main] {dtype}: " + json.dumps({
-            "build_s": build_s,
-            "cold_ground_many_b2_s": cold_s,
-            "warm_ground_many_b2_s": many_s,
-            "warm_per_request_s_b2": many_s / 2,
-            "warm_ground_b1_s": one_s,
-            "b2_prepare_s": prepare_s,
-            "b2_forward_s": forward_s,
-            "b2_backbone_s": backbone_s,
-            "max_memory_allocated_gib": peak_gib,
-            "segments": [r["sted"] for r in results],
-        }), flush=True)
-        del pipe
-    launches = resize_normalize.launches
+        _, boxes[dtype], launches, _ = serve(dtype, full_width_cfg(dtype), reqs)
+        if launches["fused_bottleneck"]:
+            fail(f"{dtype}: the float backbone launched K2")
     print(f"[main] pred_boxes max |bf16 - f32| = "
           f"{float(np.abs(boxes['bfloat16'] - boxes['float32']).max())}", flush=True)
-    print(f"[main] K1 launches {launches} for {served} requests prepared", flush=True)
-    if launches != served:
-        fail(f"K1 launched {launches} times for {served} requests prepared")
-    return launches
+
+    stats, boxes["int8"], k2_launches, passes = serve(
+        "int8_static+fused", full_width_cfg("bfloat16", backbone_quant="int8_static",
+                                            fused_bottleneck=True), reqs)
+    if stats["frames_dtype"] != "bfloat16":
+        fail(f"int8: K1 wrote {stats['frames_dtype']}, not bfloat16")
+    if k2_launches["fused_bottleneck"] != K2_PER_PASS * passes:
+        fail(f"int8: K2 launched {k2_launches['fused_bottleneck']} times for {passes} "
+             f"static backbone passes ({K2_PER_PASS} each)")
+    print(f"[main] pred_boxes max |int8 - bf16| = "
+          f"{float(np.abs(boxes['int8'] - boxes['bfloat16']).max())}", flush=True)
+
+    _, _, launches, _ = serve(
+        "int8_static-unfused", full_width_cfg("bfloat16", backbone_quant="int8_static"),
+        reqs, b1=False)
+    if launches["fused_bottleneck"]:
+        fail("int8 unfused: K2 launched")
+    return k2_launches
+
+
+def small_cfg():
+    from tubedetr_tpu_torch.config import TubeDETRConfig
+
+    return TubeDETRConfig(
+        backbone="resnet14", hidden_dim=32, nheads=4, enc_layers=1, dec_layers=2,
+        dim_feedforward=64, video_max_len=8, video_max_len_train=8, stride=2,
+        resolution=128, max_text_len=8, text_vocab_size=128, text_hidden_size=32,
+        text_layers=1, text_heads=4, text_ffn=64, text_max_positions=40,
+        guided_attn=False, aux_loss=False, dropout=0.0,
+    )
 
 
 def phase_small_agreement(workdir: str):
@@ -272,26 +480,63 @@ def phase_small_agreement(workdir: str):
     import numpy as np
 
     from tubedetr_tpu_torch.apps.pipeline import GroundingPipeline
-    from tubedetr_tpu_torch.config import TubeDETRConfig
 
-    cfg = TubeDETRConfig(
-        backbone="resnet14", hidden_dim=32, nheads=4, enc_layers=1, dec_layers=2,
-        dim_feedforward=64, video_max_len=8, video_max_len_train=8, stride=2,
-        resolution=128, max_text_len=8, text_vocab_size=128, text_hidden_size=32,
-        text_layers=1, text_heads=4, text_ffn=64, text_max_positions=40,
-        guided_attn=False, aux_loss=False, dropout=0.0,
-    )
     path = os.path.join(workdir, "small.npy")
     np.save(path, np.random.RandomState(1).randint(0, 256, (7, 96, 160, 3), dtype=np.uint8))
     outs = {}
     for dev in ("cuda", "cpu"):
-        pipe = GroundingPipeline(cfg, device=dev)
+        pipe = GroundingPipeline(small_cfg(), device=dev)
         outs[dev] = pipe.forward([pipe.prepare(path, "a red square", -1, -1, "v")[0]])[0]
     for k in ("pred_boxes", "pred_sted", "weights", "ca_weights"):
         d = float(np.abs(outs["cuda"][k] - outs["cpu"][k]).max())
         print(f"[small] {k}: max |card - cpu| = {d} (atol {SMALL_ATOL})", flush=True)
         if not d <= SMALL_ATOL:
             fail(f"small request: {k} differs between card and CPU by {d}")
+
+
+def phase_small_int8_agreement(workdir: str):
+    """The small config with resnet26 (one K2 tail per stage), int8_static +
+    fused: calibrated once on the CPU, the same scales copied to the card,
+    the same bf16 frames on both; the trunk's output in steps of its scale,
+    and the boxes and sted logits against ``SMALL_INT8_ATOL``."""
+    import numpy as np
+    import torch
+
+    from tubedetr_tpu_torch.apps.pipeline import GroundingPipeline
+    from tubedetr_tpu_torch.models.quantize import model_qscales, set_model_qscales
+    from tubedetr_tpu_torch.ops.fused_bottleneck import fused_bottleneck_block
+
+    cfg = small_cfg().replace(backbone="resnet26", backbone_quant="int8_static",
+                              fused_bottleneck=True)
+    path = os.path.join(workdir, "small.npy")
+    cpu = GroundingPipeline(cfg, device="cpu")
+    sample, _ = cpu.prepare(path, "a red square", -1, -1, "v")
+    outs = {"cpu": cpu.forward([sample])[0]}  # calibrates on the CPU
+    card = GroundingPipeline(cfg, device="cuda")
+    set_model_qscales(card.model, model_qscales(cpu.model))
+    card._needs_calibration = False
+    frames_cpu = sample.frames
+    sample.frames = frames_cpu.cuda()
+    before = fused_bottleneck_block.launches
+    outs["cuda"] = card.forward([sample])[0]
+    if fused_bottleneck_block.launches != before + 4:
+        fail("small int8: the card's forward did not run K2 on its 4 tails")
+    body_cpu, body_card = cpu.model.backbone[0].body, card.model.backbone[0].body
+    with torch.inference_mode():
+        feats = {"cpu": body_cpu(frames_cpu.float()).float().numpy(),
+                 "cuda": body_card(sample.frames.float()).float().cpu().numpy()}
+    step = float(body_cpu.layer4[-1].out_max) / 127.0
+    steps = np.abs(feats["cuda"] - feats["cpu"]) / step
+    print(f"[small-int8] trunk output |card - cpu|: max {steps.max():.3f} steps "
+          f"(at most {SMALL_INT8_STEPS}), {float((steps > 0.5).mean())} of elements differ",
+          flush=True)
+    if not steps.max() <= SMALL_INT8_STEPS + 1e-3:
+        fail(f"small int8 request: the trunk outputs differ by {steps.max()} steps")
+    for k, atol in SMALL_INT8_ATOL.items():
+        d = float(np.abs(outs["cuda"][k] - outs["cpu"][k]).max())
+        print(f"[small-int8] {k}: max |card - cpu| = {d} (atol {atol})", flush=True)
+        if not d <= atol:
+            fail(f"small int8 request: {k} differs between card and CPU by {d}")
 
 
 def main() -> int:
@@ -324,16 +569,21 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
     k1 = phase_k1()
+    k2 = phase_k2()
 
     workdir = os.path.join(HERE, "tubedetr_tpu_torch", "build", "smoke")
     os.makedirs(workdir, exist_ok=True)
     try:
-        k1["launches"] = phase_main_path(workdir)
+        launches = phase_main_path(workdir)
         phase_small_agreement(workdir)
+        phase_small_int8_agreement(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    # the counts of this slice's path: int8_static + K2 serving
+    k1["launches"] = launches["resize_normalize"]
+    k2["launches"] = launches["fused_bottleneck"]
 
-    print(json.dumps({"kernels": [k1]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

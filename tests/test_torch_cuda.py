@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA GPU, marked ``cuda``.
 
-They hold the CUDA kernels to their plain PyTorch versions on the card and
-the pipeline on the card to the pipeline on the CPU. This file imports
+They hold the CUDA kernels (K1, resize+normalize; K2, the fused int8
+bottleneck) to their plain PyTorch versions on the card, and the pipeline on
+the card (float, and int8_static + K2) to the pipeline on the CPU. This file imports
 nothing of JAX, so it also runs on a machine with only PyTorch:
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -14,6 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+from tubedetr_tpu_torch.ops.fused_bottleneck import (
+    fold_bottleneck,
+    fused_bottleneck_block,
+    fused_bottleneck_plain,
+)
 from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize, resize_normalize_plain
 
 pytestmark = pytest.mark.cuda
@@ -88,3 +94,91 @@ def test_pipeline_on_the_card_matches_the_cpu(tmp_path):
     size = np.array([160, 96, 160, 96], np.float64)
     np.testing.assert_allclose(np.asarray(out["cuda"]["boxes"]) / size,
                                np.asarray(out["cpu"]["boxes"]) / size, atol=1e-3)
+
+
+K2_CASES = {  # (frames, height, width, planes, dilation)
+    "d1": (3, 5, 7, 64, 1),
+    "d2": (3, 5, 7, 64, 2),
+    "tall-p128": (2, 9, 13, 128, 1),
+}
+
+
+def k2_inputs(n, h, w, planes, seed=0):
+    rng = np.random.RandomState(seed)
+    c = planes * 4
+    xq = torch.from_numpy(rng.randint(-127, 128, (n, h, w, c)).astype(np.int8))
+    kernels = {
+        "conv1": torch.from_numpy(rng.randn(1, 1, c, planes).astype(np.float32) * 0.05),
+        "conv2": torch.from_numpy(rng.randn(3, 3, planes, planes).astype(np.float32) * 0.05),
+        "conv3": torch.from_numpy(rng.randn(1, 1, planes, c).astype(np.float32) * 0.05),
+    }
+    norms = {
+        name: (torch.from_numpy((0.5 + rng.rand(f)).astype(np.float32)),
+               torch.from_numpy((0.1 * rng.randn(f)).astype(np.float32)))
+        for name, f in (("bn1", planes), ("bn2", planes), ("bn3", c))
+    }
+    fold = fold_bottleneck(torch.tensor(0.023), kernels, norms, torch.tensor(11.0),
+                           torch.tensor(9.0), torch.tensor(14.0))
+    return xq, fold
+
+
+def fold_to(fold, device):
+    return type(fold)(**{k: v.to(device) for k, v in vars(fold).items()})
+
+
+@pytest.mark.parametrize("case", list(K2_CASES))
+def test_k2_kernel_matches_plain(case):
+    """K2 on the card equals its plain version bit for bit, on the card
+    (cuBLASLt products) and on the CPU, given the same fold; one launch."""
+    require_cuda()
+    n, h, w, planes, d = K2_CASES[case]
+    xq, fold = k2_inputs(n, h, w, planes)
+    cfold = fold_to(fold, "cuda")
+    before = fused_bottleneck_block.launches
+    out, so = fused_bottleneck_block(xq.cuda(), cfold, d)
+    torch.cuda.synchronize()
+    assert fused_bottleneck_block.launches == before + 1
+    assert out.dtype == torch.int8 and out.shape == xq.shape and float(so) == float(fold.so)
+    assert torch.equal(out.cpu(), fused_bottleneck_plain(xq.cuda(), cfold, d).cpu())
+    assert torch.equal(out.cpu(), fused_bottleneck_plain(xq, fold, d))
+
+
+def test_k2_rejects_what_it_cannot_take():
+    require_cuda()
+    xq, fold = k2_inputs(1, 4, 4, 16)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        fused_bottleneck_block(xq.cuda(), fold_to(fold, "cuda"))
+    xq, fold = k2_inputs(1, 4, 8, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_bottleneck_block(xq.cuda()[:, :, ::2], fold_to(fold, "cuda"))
+
+
+def test_int8_pipeline_on_the_card_matches_the_cpu(tmp_path):
+    """A small int8_static + fused request (resnet26: a K2 tail per stage):
+    calibrated on the CPU, the same scales copied to the card, the same
+    frames on both. Card convs sum in another order than the CPU's, so an
+    int8 rounding on a boundary can flip; the tolerance on the normalized
+    boxes and the sted logits is that of ``chip_smoke.py``'s int8 agreement
+    phase."""
+    require_cuda()
+    import chip_smoke
+    from tubedetr_tpu_torch.apps.pipeline import GroundingPipeline
+    from tubedetr_tpu_torch.models.quantize import model_qscales, set_model_qscales
+
+    cfg = chip_smoke.small_cfg().replace(
+        backbone="resnet26", backbone_quant="int8_static", fused_bottleneck=True
+    )
+    path = str(tmp_path / "clip.npy")
+    np.save(path, np.random.RandomState(1).randint(0, 256, (7, 96, 160, 3), dtype=np.uint8))
+    cpu = GroundingPipeline(cfg, device="cpu")
+    sample, _ = cpu.prepare(path, "a red square", -1, -1, "v")
+    ref, _ = cpu.forward([sample])  # calibrates on the CPU
+    card = GroundingPipeline(cfg, device="cuda")
+    set_model_qscales(card.model, model_qscales(cpu.model))
+    card._needs_calibration = False
+    sample.frames = sample.frames.cuda()
+    before = fused_bottleneck_block.launches
+    out, _ = card.forward([sample])
+    assert fused_bottleneck_block.launches == before + 4
+    for k in ("pred_boxes", "pred_sted"):
+        np.testing.assert_allclose(out[k], ref[k], atol=chip_smoke.SMALL_INT8_ATOL[k], err_msg=k)

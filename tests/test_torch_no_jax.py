@@ -1,8 +1,11 @@
 """The port stands without JAX and without the JAX package.
 
 A subprocess blocks ``jax``, ``flax``, ``optax`` and ``tubedetr_tpu`` in
-``sys.modules``, imports every module of ``tubedetr_tpu_torch`` and
-``chip_smoke``, and serves one tiny request on the CPU. An AST scan checks
+``sys.modules``, imports every module of ``tubedetr_tpu_torch`` (the int8
+modules ``ops/int8_conv.py``, ``ops/fused_bottleneck.py`` and
+``models/quantize.py`` among them) and ``chip_smoke``, and serves one tiny
+request on the CPU with the float backbone and one with the int8_static +
+fused one, calibration included. An AST scan checks
 that no port file or ``chip_smoke.py`` names those modules in an import
 (module names compared whole: ``tubedetr_tpu_torch`` is not
 ``tubedetr_tpu``). ``chip_smoke.py`` without a card, or alone in a
@@ -68,6 +71,10 @@ def test_port_imports_and_serves_with_jax_blocked(tmp_path):
         out = GroundingPipeline(cfg, device="cpu").ground(path, "a red square", render=False)
         s, e = out["sted"]
         assert 0 <= s < e <= 6 and len(out["boxes"]) == 6
+        q = GroundingPipeline(cfg.replace(backbone="resnet26", backbone_quant="int8_static",
+                                          fused_bottleneck=True), device="cpu")
+        out = q.ground(path, "a red square", render=False)
+        assert not q._needs_calibration and len(out["boxes"]) == 6
         assert not any(m.split(".")[0] in {BLOCKED!r} for m, v in sys.modules.items() if v)
         print("SERVED", out["sted"])
     """)
@@ -75,6 +82,12 @@ def test_port_imports_and_serves_with_jax_blocked(tmp_path):
                           timeout=300, cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "SERVED" in proc.stdout
+
+
+def test_new_int8_modules_are_scanned():
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in ("ops/int8_conv.py", "ops/fused_bottleneck.py", "models/quantize.py"):
+        assert os.path.join("tubedetr_tpu_torch", mod) in names
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in-repo", "alone"])

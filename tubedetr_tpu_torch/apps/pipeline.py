@@ -6,11 +6,17 @@ host, then on the device: the uint8 frames go up once, K1
 compute dtype, and the bucket padding and collation happen there too. Only
 the masks and tokens are built on the host, and only the outputs come back.
 ``ground_many`` coalesces N requests into one forward at batch N.
+
+An ``int8_static`` backbone calibrates its activation scales on the first
+forward (one observer pass, ``models/quantize.py``) unless a sidecar for this
+config and these weights is in ``cfg.qscales_dir``; a ``reload`` recalibrates
+the same way.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -20,8 +26,19 @@ from tubedetr_tpu_torch.config import TubeDETRConfig
 from tubedetr_tpu_torch.data.collate import VideoSample, collate, model_inputs
 from tubedetr_tpu_torch.data.decode import decode_video, encode_video, probe
 from tubedetr_tpu_torch.data.transforms import bucket, make_eval_transform
-from tubedetr_tpu_torch.interop.from_jax import fabricate_state_dict, load_reference_pth
+from tubedetr_tpu_torch.interop.from_jax import (
+    fabricate_state_dict,
+    load_reference_pth,
+    qscales_from_jax,
+)
 from tubedetr_tpu_torch.models.postprocess import postprocess_boxes, postprocess_sted
+from tubedetr_tpu_torch.models.quantize import (
+    file_weights_tag,
+    get_or_calibrate_qscales,
+    load_qscales,
+    set_model_qscales,
+    sidecar_path,
+)
 from tubedetr_tpu_torch.models.tokenizer import build_tokenizer
 from tubedetr_tpu_torch.models.tubedetr import COMPUTE_DTYPES, build_model
 from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize
@@ -54,22 +71,63 @@ class GroundingPipeline:
         self.device = resolve_device(device)
         configure_precision(self.device)
         self.dtype = COMPUTE_DTYPES[cfg.compute_dtype]
+        # K1 writes bf16 for a bf16 model and for every quantized backbone,
+        # as the JAX pipeline does
+        self.frames_dtype = (
+            torch.bfloat16 if cfg.backbone_quant != "none" else self.dtype
+        )
         self.model = build_model(cfg, self.device)
         self.model.load_state_dict(fabricate_state_dict(self.model, seed))
         self.model.cast_compute(self.dtype)
         self.tokenizer = build_tokenizer(cfg.tokenizer_path, cfg.text_vocab_size)
+        # the port's seeded weights are not the JAX package's: their own tag
+        self._weights_tag = f"fabricate-torch-seed{seed}"
+        self._needs_calibration = cfg.backbone_quant == "int8_static"
+        self.calibration_s = 0.0  # host seconds of the last calibration
         if cfg.load:
             self.reload(cfg.load)
+        else:
+            self._try_cached_qscales()
 
     def reload(self, path: Optional[str] = None) -> str:
-        """Swap weights in place from a reference ``.pth`` (non-strict)."""
+        """Swap weights in place from a reference ``.pth`` (non-strict). An
+        int8_static backbone recalibrates on the next forward unless a
+        sidecar for these weights exists (a ``.pth`` carries no scales)."""
         path = path or self.cfg.load
         if not path:
             raise ValueError("no checkpoint path configured or given")
         missing, _ = load_reference_pth(self.model, path)
         if missing:
             print(f"[load] {len(missing)} tensors kept as they were (e.g. {missing[:5]})")
+        self._weights_tag = file_weights_tag(path)
+        self._needs_calibration = self.cfg.backbone_quant == "int8_static"
+        self._try_cached_qscales()
         return path
+
+    def _try_cached_qscales(self) -> None:
+        """Load a qscales sidecar matching this config and weights, so that
+        serving skips calibration."""
+        cfg = self.cfg
+        if not self._needs_calibration or not cfg.qscales_dir or cfg.calibrate:
+            return
+        path = sidecar_path(cfg, cfg.qscales_dir, self._weights_tag)
+        if not os.path.exists(path):
+            return
+        set_model_qscales(self.model, qscales_from_jax(load_qscales(path)))
+        self._needs_calibration = False
+        print(f"[quant] loaded calibrated int8 scales from {path}")
+
+    def _calibrate(self, inputs: dict) -> None:
+        t0 = time.perf_counter()
+        _, source = get_or_calibrate_qscales(
+            self.cfg, self.model, inputs, cache_dir=self.cfg.qscales_dir,
+            weights_tag=self._weights_tag, force=self.cfg.calibrate,
+        )
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.calibration_s = time.perf_counter() - t0
+        self._needs_calibration = False
+        print(f"[quant] int8 scales {source}")
 
     # -- inference --------------------------------------------------------
     def prepare(self, video_path: str, caption: str, start: float, end: float,
@@ -89,7 +147,7 @@ class GroundingPipeline:
 
         ct = make_eval_transform(h, w, np.zeros((0, 4)), cfg.resolution)
         frames_u8 = torch.from_numpy(np.ascontiguousarray(raw, dtype=np.uint8)).to(self.device)
-        resized = resize_normalize(frames_u8, ct.out_h, ct.out_w, out_dtype=self.dtype)
+        resized = resize_normalize(frames_u8, ct.out_h, ct.out_w, out_dtype=self.frames_dtype)
         # pad to the SIZE_BUCKET grid on the device; the pad is 0 in
         # normalized units, as the JAX pipeline pads
         ph, pw = bucket(ct.out_h), bucket(ct.out_w)
@@ -112,7 +170,10 @@ class GroundingPipeline:
         cfg = self.cfg
         batch = collate(samples, cfg.video_max_len, cfg.stride, cfg.max_text_len,
                         with_fast=cfg.fast)
-        out = self.model(**model_inputs(batch))
+        inputs = model_inputs(batch)
+        if self._needs_calibration:
+            self._calibrate(inputs)
+        out = self.model(**inputs)
         return {k: v.float().cpu().numpy() for k, v in out.items()}, batch
 
     def ground_many(

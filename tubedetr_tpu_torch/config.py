@@ -4,7 +4,9 @@ The field set is the JAX package's, so one keyword dict configures both
 (the parity tests rely on that). Fields that only the JAX package's training,
 mesh or TPU paths read are kept for that interchange; the port ignores them.
 ``validate()`` additionally rejects the settings this port does not run yet,
-naming the ROADMAP item that will bring each.
+naming the ROADMAP item that will bring each. The int8 backbone modes
+``int8`` and ``int8_static`` (with or without ``fused_bottleneck``) run on
+the frozen-BN ResNets.
 """
 
 from __future__ import annotations
@@ -172,12 +174,21 @@ class TubeDETRConfig:
             raise NotImplementedError(
                 "--no_pass_pos_and_query is non-functional in the reference"
             )
+        if self.backbone_quant not in ("none", "int8", "int8_static", "int8_qat"):
+            raise ValueError(f"unknown backbone_quant {self.backbone_quant!r}")
+        if self.fused_bottleneck and self.backbone_quant not in ("int8", "int8_static"):
+            raise ValueError("fused_bottleneck requires an int8 backbone_quant mode")
         # settings the port does not run yet, each with its ROADMAP item
-        if self.backbone_quant != "none" or self.fused_bottleneck:
+        if (
+            self.backbone_quant == "int8_qat"
+            or self.backbone_quant_fast != "none"
+            or self.backbone_quant_frozen != "none"
+        ):
             raise NotImplementedError(
-                f"backbone_quant={self.backbone_quant!r} / fused_bottleneck: "
-                "int8 backbones and the fused bottleneck kernel (K2) come "
-                "with ROADMAP queue 1 'int8_static inference backbone + K2'"
+                f"backbone_quant={self.backbone_quant!r}, backbone_quant_fast="
+                f"{self.backbone_quant_fast!r}, backbone_quant_frozen="
+                f"{self.backbone_quant_frozen!r}: int8_qat and the quantized "
+                "training passes come with ROADMAP queue 1 'Secondary features'"
             )
         if self.backbone.startswith("timm_") or self.backbone.endswith("-gn"):
             raise NotImplementedError(

@@ -13,6 +13,11 @@ names are the reference checkpoint's. Layout rules:
 * FrozenBatchNorm statistics come from the ``buffers`` collection
 * ResNet stage tails in either layout: scanned (``layer{i}_rest/block``,
   stacked on axis 0) or unrolled (``layer{i}_{j}``).
+
+``qscales_from_jax`` / ``qscales_to_flax`` move the int8 backbone's
+calibrated activation maxima (the flax ``qscales`` collection, in either
+layout) to and from the port's observer buffers, so calibration sidecars
+interchange between the two packages.
 """
 
 from __future__ import annotations
@@ -194,6 +199,85 @@ def params_from_jax(variables: Tree, cfg) -> Dict[str, torch.Tensor]:
             f"{cfg.enc_layers} / {cfg.dec_layers}, fast={cfg.fast}"
         )
     return sd
+
+
+BACKBONE_PREFIX = "backbone.0.body."
+
+
+def _block_qscales(tree: Tree, name: str) -> Dict[str, np.ndarray]:
+    return {
+        f"{name}.conv2.act_max": _np(tree["conv2"]["act_max"]),
+        f"{name}.conv3.act_max": _np(tree["conv3"]["act_max"]),
+        f"{name}.out_max": _np(tree["out_max"]),
+    }
+
+
+def resnet_qscales_from_jax(tree: Tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A JAX ``ResNet``'s ``qscales`` tree (scanned ``layer{i}_rest/block``
+    leaves stacked on axis 0, or unrolled ``layer{i}_{j}``) -> the port's
+    observer buffers by name (``ResNet.qscales``)."""
+    out = {f"{prefix}stem_act_max": _np(tree["stem_act_max"])}
+    for key, sub in tree.items():
+        m = re.fullmatch(r"layer(\d+)_(\d+|rest)", key)
+        if not m:
+            continue
+        li = m.group(1)
+        if m.group(2) == "rest":
+            blk = sub["block"]
+            for j in range(np.asarray(blk["out_max"]).shape[0]):
+                out.update(_block_qscales(_unstack(blk, j), f"{prefix}layer{li}.{j + 1}"))
+        else:
+            out.update(_block_qscales(sub, f"{prefix}layer{li}.{m.group(2)}"))
+    return out
+
+
+def qscales_from_jax(qscales: Tree) -> Dict[str, np.ndarray]:
+    """The full model's ``qscales`` collection (``{"backbone": ...}``) ->
+    the port's ``TubeDETR`` observer buffers by name."""
+    return resnet_qscales_from_jax(qscales["backbone"], BACKBONE_PREFIX)
+
+
+def resnet_qscales_to_flax(flat: Dict, scanned: bool, prefix: str = "") -> Tree:
+    """Inverse of ``resnet_qscales_from_jax``: the port's observer values ->
+    the JAX ``ResNet`` tree in the scanned or the unrolled layout."""
+    tree: Tree = {}
+    blocks: Dict[tuple, Dict[str, np.ndarray]] = {}
+    for name, v in flat.items():
+        if not name.startswith(prefix):
+            continue
+        rest = name[len(prefix):]
+        if rest == "stem_act_max":
+            tree["stem_act_max"] = _np(v).reshape(())
+            continue
+        m = re.fullmatch(r"layer(\d+)\.(\d+)\.(conv2\.act_max|conv3\.act_max|out_max)", rest)
+        if not m:
+            raise KeyError(f"not a ResNet observer: {name!r}")
+        blocks.setdefault((int(m.group(1)), int(m.group(2))), {})[m.group(3)] = _np(v).reshape(())
+
+    def leaf_tree(d):
+        return {"conv2": {"act_max": d["conv2.act_max"]},
+                "conv3": {"act_max": d["conv3.act_max"]}, "out_max": d["out_max"]}
+
+    for li in sorted({li for li, _ in blocks}):
+        n = 1 + max(j for l2, j in blocks if l2 == li)
+        tree[f"layer{li}_0"] = leaf_tree(blocks[(li, 0)])
+        tails = [leaf_tree(blocks[(li, j)]) for j in range(1, n)]
+        if scanned and tails:
+            tree[f"layer{li}_rest"] = {"block": {
+                "conv2": {"act_max": np.stack([t["conv2"]["act_max"] for t in tails])},
+                "conv3": {"act_max": np.stack([t["conv3"]["act_max"] for t in tails])},
+                "out_max": np.stack([t["out_max"] for t in tails]),
+            }}
+        else:
+            for j, t in enumerate(tails, start=1):
+                tree[f"layer{li}_{j}"] = t
+    return tree
+
+
+def qscales_to_flax(flat: Dict, scanned: bool) -> Tree:
+    """The port's ``TubeDETR`` observer values -> the JAX model's
+    ``qscales`` collection (what a JAX sidecar holds)."""
+    return {"backbone": resnet_qscales_to_flax(flat, scanned, BACKBONE_PREFIX)}
 
 
 def fabricate_state_dict(model: torch.nn.Module, seed: int = 0) -> Dict[str, torch.Tensor]:

@@ -41,7 +41,10 @@ class TubeDETR(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = cfg.hidden_dim
-        self.backbone = nn.ModuleList([_Backbone(ResNet(cfg.backbone, cfg.dilation))])
+        self.backbone = nn.ModuleList([_Backbone(ResNet(
+            cfg.backbone, cfg.dilation, quant=cfg.backbone_quant,
+            fused_blocks=cfg.fused_bottleneck,
+        ))])
         self.input_proj = nn.Conv2d(2048, d, kernel_size=1)
         self.query_embed = nn.Embedding(cfg.num_queries, d)
         self.transformer = TubeDETRTransformer(
@@ -68,9 +71,13 @@ class TubeDETR(nn.Module):
 
     def cast_compute(self, dtype: torch.dtype) -> "TubeDETR":
         """Cast parameters to the compute dtype. FrozenBatchNorm buffers stay
-        float32: their fold runs in float32, as in the JAX package."""
+        float32: their fold runs in float32, as in the JAX package. So do the
+        int8 backbone's conv weights, which are quantized from float32 as the
+        JAX package quantizes its float32 kernels; the calibrated maxima are
+        buffers and stay float32 too."""
+        keep = set(map(id, self.backbone[0].body.int8_convs()))
         for m in self.modules():
-            if isinstance(m, FrozenBatchNorm2d):
+            if isinstance(m, FrozenBatchNorm2d) or id(m) in keep:
                 continue
             for p in m.parameters(recurse=False):
                 p.data = p.data.to(dtype)

@@ -12,8 +12,9 @@ line:
 3. hold each kernel to its plain PyTorch version on the card and time the
    kernel, the plain version and a PyTorch yardstick with CUDA events: K1
    (resize+normalize) at the serving shape, K2 (the fused int8 bottleneck)
-   exactly at the four ResNet-101 tail shapes at 352x608 and the DC5 one,
-   timed at N=400 frames;
+   exactly at the four ResNet-101 tail shapes at 352x608 and the DC5 one
+   with 16 frames, and exactly again, and timed, at the serving batch of
+   N=400 frames;
 4. the main paths at full width: ``GroundingPipeline`` with the bench
    headline model (ResNet-101, RoBERTa-base, res 352, T=200, stride 4, fast
    and sted on, weights from a seed) serves two requests through
@@ -238,12 +239,14 @@ def k2_block(c: int, p: int, h: int, w: int, d: int, n: int, seed: int):
 
 def phase_k2():
     """K2 against its plain version: exact at every stage shape with 16
-    frames, then timed at N=400 for the four main-path stages; returns the
-    kernels-line entry (launch count filled in after the main path)."""
+    frames, then exact again and timed at N=400 for the four main-path
+    stages; returns the kernels-line entry (launch count filled in after the
+    main path)."""
     import torch
 
     from tubedetr_tpu_torch.ops.fused_bottleneck import (
-        band_rows,
+        BAND_ROWS,
+        blocks_per_sm,
         fused_bottleneck_block,
         fused_bottleneck_plain,
         smem_bytes,
@@ -261,8 +264,9 @@ def phase_k2():
         err = (out.int() - ref.int()).abs().max().item()
         case = {
             "shape": {"N": K2_CHECK_FRAMES, "H": h, "W": w, "C": c, "P": p, "dilation": d},
-            "band_rows": band_rows(h, w, p, d),
-            "smem_bytes": smem_bytes(w, p, d, band_rows(h, w, p, d)),
+            "band_rows": BAND_ROWS,
+            "smem_bytes": smem_bytes(w, p, d),
+            "blocks_per_sm": blocks_per_sm(w, p, d),
             "max_abs_err": err,
             "tolerance": "exact",
             "equal_cpu_plain": bool(torch.equal(ref.cpu(), ref_cpu)),
@@ -275,9 +279,16 @@ def phase_k2():
         if not case["equal_cpu_plain"]:
             fail(f"K2 {name}: the plain version differs between the card and the CPU")
         del xq, out, ref, ref_cpu
-        if tails:  # a main-path stage: time it at the serving batch
+        if tails:  # a main-path stage: check and time it at the serving batch
             n = K2_TIME_FRAMES
             xq, fold = k2_block(c, p, h, w, d, n, seed=20 + i)
+            out, so = fused_bottleneck_block(xq, fold, d)
+            ref = fused_bottleneck_plain(xq, fold, d)
+            err = (out.short() - ref.short()).abs().max().item()
+            case["max_abs_err_timed"] = err
+            if err != 0 or not torch.equal(out, ref) or float(so) != float(fold.so):
+                fail(f"K2 {name} at N={n}: differs from its plain version, max |err| {err}")
+            del out, ref
             weights = c * p + 9 * p * p + p * c
             nbytes = 2 * n * h * w * c + weights + 4 * (4 * p + 2 * c + 1)
             ops = 2 * n * h * w * weights
@@ -311,7 +322,8 @@ def phase_k2():
         "source": "tubedetr_tpu_torch/csrc/fused_bottleneck.cu",
         "replaces": "tubedetr_tpu/ops/fused_bottleneck.py:60",
         "launches": None,
-        "max_abs_err": max(v["max_abs_err"] for v in cases.values()),
+        "max_abs_err": max(max(v["max_abs_err"], v.get("max_abs_err_timed", 0))
+                           for v in cases.values()),
         # one ResNet-101 backbone pass at B=2, T=200: 29 launches summed
         "ms": ms,
         "plain_ms": per_pass("plain_ms"),
@@ -503,7 +515,7 @@ def phase_small_int8_agreement(workdir: str):
     import torch
 
     from tubedetr_tpu_torch.apps.pipeline import GroundingPipeline
-    from tubedetr_tpu_torch.models.quantize import model_qscales, set_model_qscales
+    from tubedetr_tpu_torch.models.quantize import model_qscales
     from tubedetr_tpu_torch.ops.fused_bottleneck import fused_bottleneck_block
 
     cfg = small_cfg().replace(backbone="resnet26", backbone_quant="int8_static",
@@ -513,8 +525,7 @@ def phase_small_int8_agreement(workdir: str):
     sample, _ = cpu.prepare(path, "a red square", -1, -1, "v")
     outs = {"cpu": cpu.forward([sample])[0]}  # calibrates on the CPU
     card = GroundingPipeline(cfg, device="cuda")
-    set_model_qscales(card.model, model_qscales(cpu.model))
-    card._needs_calibration = False
+    card.set_qscales(model_qscales(cpu.model))
     frames_cpu = sample.frames
     sample.frames = frames_cpu.cuda()
     before = fused_bottleneck_block.launches

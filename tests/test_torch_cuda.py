@@ -151,6 +151,9 @@ def test_k2_rejects_what_it_cannot_take():
     xq, fold = k2_inputs(1, 4, 8, 64)
     with pytest.raises(ValueError, match="contiguous"):
         fused_bottleneck_block(xq.cuda()[:, :, ::2], fold_to(fold, "cuda"))
+    xq, fold = k2_inputs(1, 2, 4096, 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_bottleneck_block(xq.cuda(), fold_to(fold, "cuda"))
 
 
 def test_int8_pipeline_on_the_card_matches_the_cpu(tmp_path):
@@ -163,7 +166,7 @@ def test_int8_pipeline_on_the_card_matches_the_cpu(tmp_path):
     require_cuda()
     import chip_smoke
     from tubedetr_tpu_torch.apps.pipeline import GroundingPipeline
-    from tubedetr_tpu_torch.models.quantize import model_qscales, set_model_qscales
+    from tubedetr_tpu_torch.models.quantize import model_qscales
 
     cfg = chip_smoke.small_cfg().replace(
         backbone="resnet26", backbone_quant="int8_static", fused_bottleneck=True
@@ -174,8 +177,7 @@ def test_int8_pipeline_on_the_card_matches_the_cpu(tmp_path):
     sample, _ = cpu.prepare(path, "a red square", -1, -1, "v")
     ref, _ = cpu.forward([sample])  # calibrates on the CPU
     card = GroundingPipeline(cfg, device="cuda")
-    set_model_qscales(card.model, model_qscales(cpu.model))
-    card._needs_calibration = False
+    card.set_qscales(model_qscales(cpu.model))
     sample.frames = sample.frames.cuda()
     before = fused_bottleneck_block.launches
     out, _ = card.forward([sample])

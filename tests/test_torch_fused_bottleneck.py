@@ -23,8 +23,8 @@ from tubedetr_tpu.ops.fused_bottleneck import (
     quantize_weight as jax_quantize_weight,
 )
 from tubedetr_tpu_torch.ops.fused_bottleneck import (
+    BAND_ROWS,
     SMEM_LIMIT,
-    band_rows,
     fold_bottleneck,
     fused_bottleneck_block,
     fused_bottleneck_plain,
@@ -153,10 +153,12 @@ def test_wrapper_checks_its_input():
 )
 def test_band_rows_fit_shared_memory(h, w, c, d):
     """ResNet-101 at 352x608 (and DC5's layer4): two output rows a block,
-    within the 227 KB a block may opt into."""
-    r = band_rows(h, w, c // 4, d)
-    assert r == 2
-    assert smem_bytes(w, c // 4, d, r) <= SMEM_LIMIT
+    within the 227 KB a block may opt into; the wrapper refuses a width
+    whose band does not fit."""
+    assert BAND_ROWS == 2
+    assert smem_bytes(w, c // 4, d) <= SMEM_LIMIT
+    assert smem_bytes(w, c // 4, d) == ((2 + 2 * d) * (w + 2 * d) + 2 * w) * (c // 4 + 16)
+    assert smem_bytes(8 * w, c // 4, d) > SMEM_LIMIT
 
 
 CONV_CASES = {  # (k, stride, dilation, in channels, out channels)

@@ -394,11 +394,11 @@ def test_pipeline_int8_matches_jax(tmp_path, jax_k2_reference):
     assert resize_normalize.launches == 0  # CPU frames: K1's plain version
 
 
-def test_pipeline_loads_sidecar_and_recalibrates_on_reload(tmp_path):
+def test_pipeline_loads_sidecar_and_recalibrates_on_reload(tmp_path, monkeypatch):
     """With ``qscales_dir`` the first request writes the sidecar; a new
-    pipeline on the same config and weights boots from it without
-    calibrating; ``reload`` of a checkpoint recalibrates on the next
-    request."""
+    pipeline on the same config and weights serves its first request from
+    it without calibrating; ``reload`` of a checkpoint recalibrates on the
+    next request."""
     from tubedetr_tpu_torch.apps.pipeline import GroundingPipeline
 
     cfg = TubeDETRConfig(**{**PIPE_KW, "backbone": "resnet14", "qscales_dir": str(tmp_path / "q")})
@@ -408,8 +408,15 @@ def test_pipeline_loads_sidecar_and_recalibrates_on_reload(tmp_path):
     first = a.ground(path, "a dog", render=False)
     assert not a._needs_calibration and len(list((tmp_path / "q").iterdir())) == 1
     b = GroundingPipeline(cfg, device="cpu")
-    assert not b._needs_calibration
+    calibrate = tq.calibrate_qscales
+
+    def refuse(*args):
+        raise AssertionError("calibrated although the sidecar was there")
+
+    monkeypatch.setattr(tq, "calibrate_qscales", refuse)
     assert b.ground(path, "a dog", render=False) == first
+    assert not b._needs_calibration
+    monkeypatch.setattr(tq, "calibrate_qscales", calibrate)
 
     ck = str(tmp_path / "checkpoint.pth")
     torch.save({"model": b.model.state_dict()}, ck)

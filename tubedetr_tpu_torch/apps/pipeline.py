@@ -26,18 +26,12 @@ from tubedetr_tpu_torch.config import TubeDETRConfig
 from tubedetr_tpu_torch.data.collate import VideoSample, collate, model_inputs
 from tubedetr_tpu_torch.data.decode import decode_video, encode_video, probe
 from tubedetr_tpu_torch.data.transforms import bucket, make_eval_transform
-from tubedetr_tpu_torch.interop.from_jax import (
-    fabricate_state_dict,
-    load_reference_pth,
-    qscales_from_jax,
-)
+from tubedetr_tpu_torch.interop.from_jax import fabricate_state_dict, load_reference_pth
 from tubedetr_tpu_torch.models.postprocess import postprocess_boxes, postprocess_sted
 from tubedetr_tpu_torch.models.quantize import (
     file_weights_tag,
     get_or_calibrate_qscales,
-    load_qscales,
     set_model_qscales,
-    sidecar_path,
 )
 from tubedetr_tpu_torch.models.tokenizer import build_tokenizer
 from tubedetr_tpu_torch.models.tubedetr import COMPUTE_DTYPES, build_model
@@ -86,8 +80,6 @@ class GroundingPipeline:
         self.calibration_s = 0.0  # host seconds of the last calibration
         if cfg.load:
             self.reload(cfg.load)
-        else:
-            self._try_cached_qscales()
 
     def reload(self, path: Optional[str] = None) -> str:
         """Swap weights in place from a reference ``.pth`` (non-strict). An
@@ -101,21 +93,13 @@ class GroundingPipeline:
             print(f"[load] {len(missing)} tensors kept as they were (e.g. {missing[:5]})")
         self._weights_tag = file_weights_tag(path)
         self._needs_calibration = self.cfg.backbone_quant == "int8_static"
-        self._try_cached_qscales()
         return path
 
-    def _try_cached_qscales(self) -> None:
-        """Load a qscales sidecar matching this config and weights, so that
-        serving skips calibration."""
-        cfg = self.cfg
-        if not self._needs_calibration or not cfg.qscales_dir or cfg.calibrate:
-            return
-        path = sidecar_path(cfg, cfg.qscales_dir, self._weights_tag)
-        if not os.path.exists(path):
-            return
-        set_model_qscales(self.model, qscales_from_jax(load_qscales(path)))
+    def set_qscales(self, flat: dict) -> None:
+        """Serve with these activation maxima (``models.quantize.model_qscales``
+        names) instead of calibrating on the first forward."""
+        set_model_qscales(self.model, flat)
         self._needs_calibration = False
-        print(f"[quant] loaded calibrated int8 scales from {path}")
 
     def _calibrate(self, inputs: dict) -> None:
         t0 = time.perf_counter()

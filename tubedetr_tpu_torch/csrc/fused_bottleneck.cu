@@ -16,7 +16,7 @@
 // bound by bytes, layer3 and layer4 by operations (about 0.4-0.8 ms each).
 //
 // Design: the Pallas kernel holds two whole frames in VMEM; that does not
-// fit an SM, so here one block computes one band of R output rows of one
+// fit an SM, so here one block computes one band of R = 2 output rows of one
 // frame and keeps every intermediate in shared memory:
 //   phase 1  conv1 over the band plus a halo of d rows (the halo is
 //            recomputed by the neighbouring bands: (R+2d)/R times the conv1
@@ -48,6 +48,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kMT = 2;    // m16 tiles per warp task: 32 pixels
 constexpr int kNT = 8;    // n8 tiles per warp task: 64 output channels
 constexpr int kPad = 16;  // bytes of padding per pixel row in shared memory
+constexpr int kR = 2;     // output rows per block (the last band of an odd H has 1)
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4], const int (&b)[2]) {
   asm volatile(
@@ -79,7 +80,7 @@ struct Params {
   const int8_t* w2;  // (9, P, P)
   const int8_t* w3;  // (C, P)
   const float *a1, *b1, *a2, *b2, *a3, *b3, *sid;
-  int H, W, C, P, d, R;
+  int H, W, C, P, d;
 };
 
 // One warp task of the A(M x K) * B(K x 64) product: A rows given as byte
@@ -129,15 +130,15 @@ __device__ __forceinline__ void zero_acc(int (&acc)[kMT][kNT][4]) {
 
 __global__ void __launch_bounds__(kThreads) fused_bottleneck_kernel(Params p) {
   extern __shared__ __align__(16) int8_t smem[];
-  const int H = p.H, W = p.W, C = p.C, P = p.P, d = p.d, R = p.R;
+  const int H = p.H, W = p.W, C = p.C, P = p.P, d = p.d;
   const int frame = blockIdx.y;
-  const int r0 = blockIdx.x * R;      // first output row of the band
-  const int rows = min(R, H - r0);    // output rows of this band
+  const int r0 = blockIdx.x * kR;     // first output row of the band
+  const int rows = min(kR, H - r0);   // output rows of this band
   const int hr = rows + 2 * d;        // q1 rows, halo included
   const int tw = W + 2 * d;           // q1 tile width, zero border included
   const int ps = P + kPad;            // bytes per pixel row in shared memory
-  int8_t* q1 = smem;                                   // (R + 2d) x tw pixels
-  int8_t* q2 = smem + (size_t)(R + 2 * d) * tw * ps;   // R x W pixels
+  int8_t* q1 = smem;                                    // (kR + 2d) x tw pixels
+  int8_t* q2 = smem + (size_t)(kR + 2 * d) * tw * ps;   // kR x W pixels
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -272,7 +273,27 @@ __global__ void __launch_bounds__(kThreads) fused_bottleneck_kernel(Params p) {
   }
 }
 
+// Dynamic shared memory of one block: the zero-bordered q1 tile of kR + 2d
+// rows and the q2 tile of kR rows, each pixel row padded by kPad bytes.
+size_t smem_bytes(int w, int p, int d) {
+  return ((size_t)(kR + 2 * d) * (w + 2 * d) + (size_t)kR * w) * ((size_t)p + kPad);
+}
+
 }  // namespace
+
+// Blocks of the kernel resident on one SM for a band of width w with p mid
+// channels at dilation d (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or
+// -1 on an error.
+extern "C" int fused_bottleneck_blocks_per_sm(int w, int p, int d) {
+  const size_t smem = smem_bytes(w, p, d);
+  int blocks = 0;
+  if (cudaFuncSetAttribute(fused_bottleneck_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fused_bottleneck_kernel, kThreads,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return blocks;
+}
 
 // Plain C entry point (loaded with ctypes). Launches on `stream`, does not
 // synchronise, allocates nothing; returns cudaGetLastError() of the launch,
@@ -281,9 +302,9 @@ extern "C" int fused_bottleneck_s8(
     const void* x, void* out, const void* w1, const void* w2, const void* w3,
     const void* a1, const void* b1, const void* a2, const void* b2,
     const void* a3, const void* b3, const void* sid,
-    int n, int h, int w, int c, int p, int d, int r, void* stream) {
+    int n, int h, int w, int c, int p, int d, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0) return (int)cudaSuccess;
-  if (c % 64 || p % 64 || d < 1 || r < 1 || n > 65535) return (int)cudaErrorInvalidValue;
+  if (c % 64 || p % 64 || d < 1 || n > 65535) return (int)cudaErrorInvalidValue;
   Params prm;
   prm.x = static_cast<const int8_t*>(x);
   prm.out = static_cast<int8_t*>(out);
@@ -302,13 +323,11 @@ extern "C" int fused_bottleneck_s8(
   prm.C = c;
   prm.P = p;
   prm.d = d;
-  prm.R = r;
-  const size_t ps = (size_t)p + kPad;
-  const size_t smem = ((size_t)(r + 2 * d) * (w + 2 * d) + (size_t)r * w) * ps;
+  const size_t smem = smem_bytes(w, p, d);
   cudaError_t err = cudaFuncSetAttribute(
       fused_bottleneck_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((h + r - 1) / r, n);
+  const dim3 grid((h + kR - 1) / kR, n);
   fused_bottleneck_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(prm);
   return (int)cudaGetLastError();
 }

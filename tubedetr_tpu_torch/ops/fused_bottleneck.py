@@ -31,6 +31,7 @@ from tubedetr_tpu_torch.ops.int8_conv import im2col, int_mm
 CHANNEL_GROUP = 64  # the kernel's warp tile spans 64 output channels
 SMEM_LIMIT = 227 * 1024  # opt-in shared memory of one block on sm_90
 SMEM_PAD = 16  # bytes added to each pixel's channel row in shared memory
+BAND_ROWS = 2  # output rows per CUDA block (kR in the kernel)
 
 
 def quantize_weight(kernel: torch.Tensor):
@@ -120,27 +121,31 @@ def fused_bottleneck_plain(xq: torch.Tensor, fold: BottleneckFold, dilation: int
     return _requant(y3).reshape(n, h, w, c)
 
 
-def band_rows(h: int, w: int, p: int, dilation: int) -> int:
-    """Output rows per CUDA block: 2 where that fits (conv1 recomputes a halo
-    of ``dilation`` rows on each side, so R=2 does 2x the conv1 work of the
-    band at d=1 where R=1 does 3x), else 1."""
-    for r in (2, 1):
-        if r <= h and smem_bytes(w, p, dilation, r) <= SMEM_LIMIT:
-            return r
-    raise ValueError(f"K2 cannot hold a band of one row of width {w} with {p} channels")
-
-
-def smem_bytes(w: int, p: int, dilation: int, r: int) -> int:
+def smem_bytes(w: int, p: int, dilation: int) -> int:
     """Shared memory of one K2 block: the zero-bordered ``q1`` tile of
-    ``r + 2d`` rows and the ``q2`` tile of ``r`` rows."""
-    ps = p + SMEM_PAD
+    ``BAND_ROWS + 2d`` rows and the ``q2`` tile of ``BAND_ROWS`` rows. Two
+    rows a block: conv1 recomputes a halo of ``dilation`` rows on each side,
+    so at d=1 it does 2x the band's conv1 work (3x with one row a block)."""
+    r, ps = BAND_ROWS, p + SMEM_PAD
     return ((r + 2 * dilation) * (w + 2 * dilation) + r * w) * ps
 
 
-def _launch(xq, out, fold: BottleneckFold, dilation: int, r: int) -> None:
+def blocks_per_sm(w: int, p: int, dilation: int) -> int:
+    """K2 blocks resident on one SM of the current card for a band of width
+    ``w`` with ``p`` mid channels, as the CUDA occupancy calculator gives it
+    (registers, shared memory and threads of the built kernel)."""
+    fn = _cuda_build.load("fused_bottleneck").fused_bottleneck_blocks_per_sm
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    blocks = fn(w, p, dilation)
+    if blocks < 0:
+        raise RuntimeError("the CUDA occupancy query for K2 failed")
+    return blocks
+
+
+def _launch(xq, out, fold: BottleneckFold, dilation: int) -> None:
     fn = _cuda_build.load("fused_bottleneck").fused_bottleneck_s8
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     n, h, w, c = xq.shape
     p = fold.w1.shape[0]
@@ -149,7 +154,7 @@ def _launch(xq, out, fold: BottleneckFold, dilation: int, r: int) -> None:
         xq.data_ptr(), out.data_ptr(), fold.w1.data_ptr(), fold.w2.data_ptr(),
         fold.w3.data_ptr(), fold.a1.data_ptr(), fold.b1.data_ptr(), fold.a2.data_ptr(),
         fold.b2.data_ptr(), fold.a3.data_ptr(), fold.b3.data_ptr(), fold.sid.data_ptr(),
-        n, h, w, c, p, dilation, r, stream,
+        n, h, w, c, p, dilation, stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_bottleneck kernel launch failed: CUDA error {err}")
@@ -177,12 +182,18 @@ def fused_bottleneck_block(xq: torch.Tensor, fold: BottleneckFold, dilation: int
         t = getattr(fold, name)
         if t.device != xq.device or not t.is_contiguous():
             raise ValueError(f"fold.{name} must be contiguous on {xq.device}")
-    n, h, w, _ = xq.shape
+    n, _, w, _ = xq.shape
     if n > 65535:
         raise ValueError("at most 65535 frames per launch")
+    if smem_bytes(w, p, dilation) > SMEM_LIMIT:
+        raise ValueError(
+            f"K2's band of {BAND_ROWS} rows of width {w} with {p} channels at dilation "
+            f"{dilation} needs {smem_bytes(w, p, dilation)} bytes of shared memory, "
+            f"more than {SMEM_LIMIT}"
+        )
     out = torch.empty_like(xq)
     with torch.cuda.device(xq.device):
-        _launch(xq, out, fold, dilation, band_rows(h, w, p, dilation))
+        _launch(xq, out, fold, dilation)
     fused_bottleneck_block.launches += 1
     return out, fold.so
 

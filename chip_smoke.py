@@ -25,6 +25,11 @@ line:
 5. small requests through the pipeline on the card and on the CPU (the
    plain path), float and int8_static + fused, which must agree.
 
+Between 3 and 4, the probes P1-P5 (``tubedetr_tpu_torch/probes``): both
+entry points at the scripts' full shapes with their launch counts zeroed
+just before and read just after, each kernel held exactly to its plain
+version, and noshift and convonly timed beside K2 at layer3's serving shape.
+
 Then one ``kernels`` JSON line, the ``nvidia-smi`` line again, and, last, the
 ``ok`` JSON line. There is no CPU path: without a card the script exits 2.
 """
@@ -34,8 +39,6 @@ from __future__ import annotations
 import json
 import os
 import shutil
-import statistics
-import subprocess
 import sys
 import time
 
@@ -43,6 +46,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 
 # K1 at the serving shape: 200 frames of 360x640 -> 330x586 at res 352
 K1_SHAPE = (200, 360, 640, 3)
@@ -72,36 +76,16 @@ K2_PER_PASS = 29  # 2 + 3 + 22 + 2 tails in ResNet-101
 SMALL_INT8_STEPS = 4
 SMALL_INT8_ATOL = {"pred_boxes": 1e-3, "pred_sted": 1e-3}
 
+# P1-P5, the probes: the scripts' default specs plus both flat variants, at
+# the scripts' full shapes; noshift and convonly again beside K2 at layer3's
+# serving shape (seed 22: K2's own layer3 input in phase_k2)
+PROBE_SPECS = ("full:2", "noshift:2", "dot2d:2", "convonly:2", "noshift:8", "hwpad:2", "im2col:2")
+PROBE_SERVING = K2_STAGES["layer3"][:5]
+PROBE_SERVING_SEED = 22
+
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def smi_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, groups: int = 21, per_group: int = 10) -> float:
-    """Median over ``groups`` of the mean CUDA-event time of ``per_group``
-    back-to-back calls, after a warm-up."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(groups):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(per_group):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / per_group)
-    return statistics.median(times)
 
 
 def synced(fn):
@@ -130,6 +114,7 @@ def phase_k1():
 
     from tubedetr_tpu_torch.ops.preprocess import norm_affine
     from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize, resize_normalize_plain
+    from tubedetr_tpu_torch.probes import cuda_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
     gen = torch.Generator().manual_seed(0)
@@ -251,6 +236,7 @@ def phase_k2():
         fused_bottleneck_plain,
         smem_bytes,
     )
+    from tubedetr_tpu_torch.probes import cuda_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cases = {}
@@ -338,6 +324,196 @@ def phase_k2():
     print(f"[k2] per pass: {ms:.3f} ms (bound {bound:.3f} ms, plain {entry['plain_ms']:.3f} ms)",
           flush=True)
     return entry
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float):
+    """(bound ms, what bounds it): the larger of bytes over the memory rate
+    and operations over the peak rate."""
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def max_err(out, ref) -> float:
+    return (out.double() - ref.double()).abs().max().item()
+
+
+def probe_entry(name, source, replaces, cases, head, library_ms):
+    """A kernels-line entry of a probe from its cases (launch count filled in
+    by the caller)."""
+    c = cases[head]
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": None,
+        "max_abs_err": max(v["max_abs_err"] for v in cases.values()),
+        "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+        "bound_by": c["bound_by"], "library_ms": library_ms, "per": f"one launch, {head}",
+        "cases": cases,
+    }
+
+
+def phase_probes():
+    """P1-P5. Their path is the probes' entry points: ``int8_matmul.run`` and
+    ``fused_variants.run`` at the scripts' full shapes, launch counts zeroed
+    just before and read just after. Then each kernel against its plain
+    version on the same inputs (exact: s32 and int8 outputs, and bf16 whose
+    integer partial sums stay below 2**24), specs of one function against
+    each other, each plain version on the card against the CPU on a small
+    case, the plain and library times, and noshift and convonly beside K2 at
+    layer3's serving shape. Returns the five kernels-line entries."""
+    import numpy as np
+    import torch
+
+    from tubedetr_tpu_torch.ops import probe_bottleneck as pb
+    from tubedetr_tpu_torch.ops import probe_mm
+    from tubedetr_tpu_torch.ops.fused_bottleneck import fused_bottleneck_block
+    from tubedetr_tpu_torch.probes import cuda_ms
+    from tubedetr_tpu_torch.probes import fused_variants as fv
+    from tubedetr_tpu_torch.probes import int8_matmul as im
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wrappers = {"P1": probe_mm.int8_mm, "P2": probe_mm.bf16_mm, "P3": probe_mm.int8_mm_frames,
+                "P4": pb.bottleneck_variant, "P5": pb.flat_bottleneck}
+    for fn in wrappers.values():
+        fn.launches = 0
+    say = lambda line: print(f"[probes] {line}", flush=True)  # noqa: E731
+    say("python -m tubedetr_tpu_torch.probes.int8_matmul")
+    mm_rows = im.run(out=say)
+    say("python -m tubedetr_tpu_torch.probes.fused_variants " + " ".join(PROBE_SPECS))
+    fv_rows = fv.run(PROBE_SPECS, out=say)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    say(f"launches on the probes' path: {json.dumps(launches)}")
+    for k, v in launches.items():
+        if not v:
+            fail(f"{k}: its kernel was not launched on the probes' path")
+
+    # ---- P1-P3 at the script's shapes: the F=2 draw
+    x, wt = im.make_inputs(np.random.RandomState(0))
+    prods = {prod.probe: prod for prod in im.products(x, wt, im.HW, 2)}
+    small = {dev: im.make_inputs(np.random.RandomState(1), n_frames=2, device=dev)
+             for dev in ("cpu", "cuda")}
+    mm_cases = {}
+    for key in ("P1", "P2", "P3"):
+        prod = prods[key]
+        out, ref = prod.call(), prod.plain()
+        torch.cuda.synchronize()
+        small_plain = {dev: {q.probe: q for q in im.products(*small[dev], im.HW, 2)}[key].plain()
+                       for dev in small}
+        rate = BF16_OPS_PER_S if key == "P2" else INT8_OPS_PER_S
+        bound_ms, bound_by = bound(prod.nbytes, prod.ops, rate)
+        timed = {r["F"]: r["ms"] for r in mm_rows if r["probe"] == key}
+        case = {
+            "shape": {"rows": x.shape[0], "K": x.shape[1], "N": wt.shape[0], "frame_rows": im.HW},
+            "max_abs_err": max_err(out, ref), "tolerance": "exact",
+            "equal_cpu_plain": bool(torch.equal(small_plain["cuda"].cpu(), small_plain["cpu"])),
+            "ms": timed[2], "ms_F8": timed[8],
+            "plain_ms": cuda_ms(prod.plain, groups=5, per_group=2),
+            "bound_ms": bound_ms, "bound_by": bound_by, "rate": prod.ops / timed[2] / 1e9,
+        }
+        say(f"{key}: {json.dumps(case)}")
+        if not torch.equal(out, ref):
+            fail(f"{key} differs from its plain version: max |err| {case['max_abs_err']}")
+        if not case["equal_cpu_plain"]:
+            fail(f"{key}: the plain version differs between the card and the CPU")
+        mm_cases[key] = case
+        del out, ref
+    lib_s8 = {r["F"]: r["ms"] for r in mm_rows if r["probe"] == "library"}
+    xb, wtb = x.to(torch.bfloat16), wt.to(torch.bfloat16)
+    try:  # f32 out, as P2 writes, where this torch has it
+        torch.mm(xb[:32], wtb.t(), out_dtype=torch.float32)
+        lib_bf16, lib_bf16_form = (lambda: torch.mm(xb, wtb.t(), out_dtype=torch.float32)), "f32 out"
+    except (TypeError, RuntimeError):
+        lib_bf16, lib_bf16_form = (lambda: torch.mm(xb, wtb.t())), "bf16 out: half of P2's output bytes"
+    lib_bf16_ms = cuda_ms(lib_bf16)
+    say(f"P2 library torch.mm ({lib_bf16_form}): {lib_bf16_ms} ms")
+    del x, wt, xb, wtb, prods, small
+    entries = [
+        probe_entry("probe_int8_mm", "tubedetr_tpu_torch/csrc/probe_mm.cu",
+                    "scripts/probe_pallas_int8.py:72", {"F2": mm_cases["P1"]}, "F2", lib_s8[2]),
+        probe_entry("probe_bf16_mm", "tubedetr_tpu_torch/csrc/probe_mm.cu",
+                    "scripts/probe_pallas_int8.py:101", {"F2": mm_cases["P2"]}, "F2", lib_bf16_ms),
+        probe_entry("probe_int8_mm_frames", "tubedetr_tpu_torch/csrc/probe_mm.cu",
+                    "scripts/probe_pallas_int8.py:129", {"F2": mm_cases["P3"]}, "F2", lib_s8[2]),
+    ]
+    entries[0]["library"] = entries[2]["library"] = "torch._int_mm (cuBLASLt)"
+    entries[1]["library"] = f"torch.mm bf16 ({lib_bf16_form})"
+
+    # ---- P4 and P5 at the script's shapes
+    n, h, w, c, p, hwp = fv.N, fv.H, fv.W, fv.C, fv.P, fv.HWP
+    weights = c * p + 9 * p * p + p * c
+    bv_cases, flat_cases = {}, {}
+    for flat, cases in ((False, bv_cases), (True, flat_cases)):
+        x, fold = fv.make_inputs(flat)
+        small = {dev: fv.make_inputs(flat, n=2, device=dev) for dev in ("cpu", "cuda")}
+        outs = {}
+        variants = dict.fromkeys(fv.parse_spec(spec)[0] for spec in PROBE_SPECS)
+        for variant in (v for v in variants if (v in pb.FLAT_VARIANTS) == flat):
+            out = fv.variant_call(variant, x, fold)()
+            ref = fv.plain_call(variant, x, fold)()
+            torch.cuda.synchronize()
+            small_plain = {dev: fv.plain_call(variant, *small[dev])() for dev in small}
+            kernel = fv.KERNEL[variant]
+            ops = (2 * n * h * w * 2 * c * p if kernel == "convonly"
+                   else fv.block_ops(n, h, w, c, p))
+            bound_ms, bound_by = bound(2 * x.numel() + weights + 4 * (4 * p + 2 * c + 1), ops,
+                                       INT8_OPS_PER_S)
+            row = next(r for r in fv_rows if r["variant"] == variant)
+            case = {
+                "spec": row["spec"], "kernel": kernel, "same_kernel_as": row["same_kernel_as"],
+                "shape": {"N": n, "rows_per_frame": x.shape[1], "H": h, "W": w, "C": c, "P": p},
+                "max_abs_err": max_err(out, ref), "tolerance": "exact",
+                "equal_cpu_plain": bool(torch.equal(small_plain["cuda"].cpu(), small_plain["cpu"])),
+                "ms": row["ms"], "ms_all_specs": {r["spec"]: r["ms"] for r in fv_rows
+                                                  if r["variant"] == variant},
+                "plain_ms": cuda_ms(fv.plain_call(variant, x, fold), groups=5, per_group=2),
+                "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
+                "tops": ops / row["ms"] / 1e9,
+            }
+            say(f"{variant}: {json.dumps(case)}")
+            if not torch.equal(out, ref):
+                fail(f"{variant} differs from its plain version: max |err| {case['max_abs_err']}")
+            if not case["equal_cpu_plain"]:
+                fail(f"{variant}: the plain version differs between the card and the CPU")
+            outs[variant] = out
+            cases[variant] = case
+        same = ("hwpad", "im2col") if flat else ("full", "dot2d")
+        if not torch.equal(outs[same[0]], outs[same[1]]):
+            fail(f"{same[0]} and {same[1]} compute one function but differ")
+        if flat and bool((outs["hwpad"][:, h * w:] != 0).any()):
+            fail("P5 wrote a non-zero pad row")
+        del x, fold, small, outs
+
+    # ---- noshift and convonly beside K2 at layer3's serving shape
+    c, p, h, w, d = PROBE_SERVING
+    xq, fold = k2_block(c, p, h, w, d, K2_TIME_FRAMES, seed=PROBE_SERVING_SEED)
+    serving = {"shape": {"N": K2_TIME_FRAMES, "H": h, "W": w, "C": c, "P": p}}
+    for variant in ("noshift", "convonly"):
+        out, ref = pb.bottleneck_variant(xq, fold, variant), pb.bottleneck_variant_plain(xq, fold, variant)
+        serving[f"{variant}_max_abs_err"] = max_err(out, ref)
+        if not torch.equal(out, ref):
+            fail(f"{variant} at layer3's serving shape differs from its plain version")
+        del out, ref
+    k2_ms = lambda: cuda_ms(lambda: fused_bottleneck_block(xq, fold, d), groups=11, per_group=5)  # noqa: E731
+    serving["k2_ms_before"] = k2_ms()
+    for variant in ("noshift", "convonly"):
+        serving[f"{variant}_ms"] = cuda_ms(lambda: pb.bottleneck_variant(xq, fold, variant),
+                                           groups=11, per_group=5)
+    serving["k2_ms_after"] = k2_ms()
+    say(f"layer3 serving shape: {json.dumps(serving)}")
+    bv_cases["serving-layer3"] = {**serving, "max_abs_err": max(
+        serving["noshift_max_abs_err"], serving["convonly_max_abs_err"])}
+    del xq, fold
+    torch.cuda.empty_cache()
+
+    entries.append(probe_entry(
+        "probe_bottleneck_variants", "tubedetr_tpu_torch/csrc/fused_bottleneck.cu",
+        "scripts/probe_fused_variants.py:129", bv_cases, "full", None))
+    entries.append(probe_entry(
+        "probe_flat_bottleneck", "tubedetr_tpu_torch/csrc/probe_flat_bottleneck.cu",
+        "scripts/probe_fused_variants.py:237", flat_cases, "hwpad", None))
+    for entry, key in zip(entries, ("P1", "P2", "P3", "P4", "P5")):
+        entry["launches"] = launches[key]
+        entry["probe"] = key
+    return entries
 
 
 def full_width_cfg(dtype: str, **extra):
@@ -566,8 +742,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from tubedetr_tpu_torch.ops import _cuda_build
+    from tubedetr_tpu_torch.probes import card_line
 
-    smi = smi_line()
+    smi = card_line()
     print(f"[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
@@ -581,6 +758,7 @@ def main() -> int:
 
     k1 = phase_k1()
     k2 = phase_k2()
+    probes = phase_probes()
 
     workdir = os.path.join(HERE, "tubedetr_tpu_torch", "build", "smoke")
     os.makedirs(workdir, exist_ok=True)
@@ -594,7 +772,7 @@ def main() -> int:
     k1["launches"] = launches["resize_normalize"]
     k2["launches"] = launches["fused_bottleneck"]
 
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, *probes]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,8 +1,9 @@
 """Tests of the port that need an NVIDIA GPU, marked ``cuda``.
 
 They hold the CUDA kernels (K1, resize+normalize; K2, the fused int8
-bottleneck) to their plain PyTorch versions on the card, and the pipeline on
-the card (float, and int8_static + K2) to the pipeline on the CPU. This file imports
+bottleneck; the probes P1-P5) to their plain PyTorch versions on the card,
+and the pipeline on the card (float, and int8_static + K2) to the pipeline
+on the CPU. This file imports
 nothing of JAX, so it also runs on a machine with only PyTorch:
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -20,7 +21,11 @@ from tubedetr_tpu_torch.ops.fused_bottleneck import (
     fused_bottleneck_block,
     fused_bottleneck_plain,
 )
+from tubedetr_tpu_torch.ops.probe_bottleneck import bottleneck_variant, flat_bottleneck
+from tubedetr_tpu_torch.ops.probe_mm import bf16_mm, int8_mm, int8_mm_frames
 from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize, resize_normalize_plain
+from tubedetr_tpu_torch.probes import fused_variants as fv
+from tubedetr_tpu_torch.probes import int8_matmul as im
 
 pytestmark = pytest.mark.cuda
 
@@ -128,8 +133,10 @@ def fold_to(fold, device):
 
 @pytest.mark.parametrize("case", list(K2_CASES))
 def test_k2_kernel_matches_plain(case):
-    """K2 on the card equals its plain version bit for bit, on the card
-    (cuBLASLt products) and on the CPU, given the same fold; one launch."""
+    """K2 (the ``Full`` instantiation of the kernel template) on the card
+    equals its plain version bit for bit, on the card (cuBLASLt products)
+    and on the CPU, given the same fold; one launch. The probe's ``full``
+    runs the same kernel and gives the same output."""
     require_cuda()
     n, h, w, planes, d = K2_CASES[case]
     xq, fold = k2_inputs(n, h, w, planes)
@@ -141,6 +148,8 @@ def test_k2_kernel_matches_plain(case):
     assert out.dtype == torch.int8 and out.shape == xq.shape and float(so) == float(fold.so)
     assert torch.equal(out.cpu(), fused_bottleneck_plain(xq.cuda(), cfold, d).cpu())
     assert torch.equal(out.cpu(), fused_bottleneck_plain(xq, fold, d))
+    if d == 1:
+        assert torch.equal(out, bottleneck_variant(xq.cuda(), cfold, "full"))
 
 
 def test_k2_rejects_what_it_cannot_take():
@@ -184,3 +193,82 @@ def test_int8_pipeline_on_the_card_matches_the_cpu(tmp_path):
     assert fused_bottleneck_block.launches == before + 4
     for k in ("pred_boxes", "pred_sted"):
         np.testing.assert_allclose(out[k], ref[k], atol=chip_smoke.SMALL_INT8_ATOL[k], err_msg=k)
+
+
+PROBE_MM_CASES = {  # (frames, rows a frame, K, N): "ragged" tiles a frame of 37 rows
+    "small": (2, 64, 64, 128),
+    "ragged": (3, 37, 96, 192),
+}
+
+
+@pytest.mark.parametrize("case", list(PROBE_MM_CASES))
+def test_probe_gemms_match_plain(case):
+    """P1, P2, P3 equal their plain versions exactly, on the card and on the
+    CPU; P3's last tile of every frame is partial at 37 rows a frame."""
+    require_cuda()
+    frames, hw, k, n = PROBE_MM_CASES[case]
+    x, wt = im.make_inputs(np.random.RandomState(0), frames, hw, k, n, device="cpu")
+    prods = {dev: {p.probe: p for p in im.products(x.to(dev), wt.to(dev), hw, 2)}
+             for dev in ("cpu", "cuda")}
+    counters = {"P1": int8_mm, "P2": bf16_mm, "P3": int8_mm_frames}
+    for key, wrapper in counters.items():
+        before = wrapper.launches
+        out = prods["cuda"][key].call()
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1, key
+        assert torch.equal(out, prods["cuda"][key].plain()), key
+        assert torch.equal(out.cpu(), prods["cpu"][key].call()), key
+
+
+PROBE_BLOCK_CASES = {  # (frames, height, width, C, P)
+    "small": (3, 5, 7, 256, 64),
+    "tall-odd": (2, 9, 13, 512, 128),
+}
+
+
+@pytest.mark.parametrize("variant", ["full", "noshift", "convonly"])
+@pytest.mark.parametrize("case", list(PROBE_BLOCK_CASES))
+def test_probe_bottleneck_variants_match_plain(case, variant):
+    """P4's variants of K2 equal their plain versions bit for bit."""
+    require_cuda()
+    n, h, w, c, p = PROBE_BLOCK_CASES[case]
+    x, fold = fv.make_inputs(False, n, h, w, c, p, device="cuda")
+    before = bottleneck_variant.launches
+    out = fv.variant_call(variant, x, fold, h, w)()
+    torch.cuda.synchronize()
+    assert bottleneck_variant.launches == before + 1
+    assert torch.equal(out, fv.plain_call(variant, x, fold, h, w)())
+
+
+@pytest.mark.parametrize("variant", ["hwpad", "im2col"])
+@pytest.mark.parametrize("case", list(PROBE_BLOCK_CASES))
+def test_flat_bottleneck_matches_plain(case, variant):
+    """P5 equals its plain version bit for bit, pad rows 0, at frames of
+    h*w + w + 1 rows (not a multiple of 16) whose blocks cross frames and end
+    ragged."""
+    require_cuda()
+    n, h, w, c, p = PROBE_BLOCK_CASES[case]
+    hwp = h * w + w + 1
+    x, fold = fv.make_inputs(True, n, h, w, c, p, hwp, device="cuda")
+    before = flat_bottleneck.launches
+    out = fv.variant_call(variant, x, fold, h, w)()
+    torch.cuda.synchronize()
+    assert flat_bottleneck.launches == before + 1
+    assert torch.equal(out, fv.plain_call(variant, x, fold, h, w)())
+    assert not out[:, h * w:].any()
+
+
+def test_probes_reject_what_they_cannot_take():
+    require_cuda()
+    x, wt = im.make_inputs(np.random.RandomState(0), 1, 32, 64, 96, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 64"):
+        int8_mm(x, wt)
+    x, wt = im.make_inputs(np.random.RandomState(0), 1, 32, 40, 64, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        bf16_mm(x.bfloat16(), wt.bfloat16())
+    x, fold = fv.make_inputs(False, 1, 4, 4, 128, 32, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 64"):
+        bottleneck_variant(x.view(1, 4, 4, 128), fold, "noshift")
+    x, fold = fv.make_inputs(True, 1, 2, 512, 1024, 256, hwp=2 * 512 + 513, device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        flat_bottleneck(x, fold, "im2col", 2, 512)

@@ -3,7 +3,9 @@
 A subprocess blocks ``jax``, ``flax``, ``optax`` and ``tubedetr_tpu`` in
 ``sys.modules``, imports every module of ``tubedetr_tpu_torch`` (the int8
 modules ``ops/int8_conv.py``, ``ops/fused_bottleneck.py`` and
-``models/quantize.py`` among them) and ``chip_smoke``, and serves one tiny
+``models/quantize.py``, and the probes' ``ops/probe_mm.py``,
+``ops/probe_bottleneck.py`` and ``probes/`` among them) and ``chip_smoke``,
+and serves one tiny
 request on the CPU with the float backbone and one with the int8_static +
 fused one, calibration included. An AST scan checks
 that no port file or ``chip_smoke.py`` names those modules in an import
@@ -86,7 +88,9 @@ def test_port_imports_and_serves_with_jax_blocked(tmp_path):
 
 def test_new_int8_modules_are_scanned():
     names = {os.path.relpath(p, ROOT) for p in _port_files()}
-    for mod in ("ops/int8_conv.py", "ops/fused_bottleneck.py", "models/quantize.py"):
+    for mod in ("ops/int8_conv.py", "ops/fused_bottleneck.py", "models/quantize.py",
+                "ops/probe_mm.py", "ops/probe_bottleneck.py", "probes/__init__.py",
+                "probes/int8_matmul.py", "probes/fused_variants.py"):
         assert os.path.join("tubedetr_tpu_torch", mod) in names
 
 

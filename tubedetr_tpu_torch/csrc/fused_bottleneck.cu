@@ -38,40 +38,24 @@
 // as jnp.round / torch.round), clamp to [0, 127]: given the same folds the
 // output equals the plain PyTorch version bit for bit.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_tiles.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMT = 2;    // m16 tiles per warp task: 32 pixels
-constexpr int kNT = 8;    // n8 tiles per warp task: 64 output channels
 constexpr int kPad = 16;  // bytes of padding per pixel row in shared memory
 constexpr int kR = 2;     // output rows per block (the last band of an odd H has 1)
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4], const int (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ int ld_global(const int8_t* p) {
-  return __ldg(reinterpret_cast<const int*>(p));
-}
-__device__ __forceinline__ int ld_shared(const int8_t* p) {
-  return *reinterpret_cast<const int*>(p);
-}
-
-// relu -> round half to even -> clamp to [0, 127]
-__device__ __forceinline__ int8_t requant(float y) {
-  return (int8_t)(int)fminf(rintf(fmaxf(y, 0.f)), 127.f);
-}
-__device__ __forceinline__ int8_t fold(int acc, float a, float b) {
-  return requant(__fadd_rn(__fmul_rn((float)acc, a), b));
-}
+// Which parts of the block run. kFull is K2. The other two are the probes of
+// scripts/probe_fused_variants.py (`run`, P4), K2 with one part switched off:
+//   kNoShift   conv1 over the band only (no halo rows), and the 9 taps all
+//              read the centre pixel of the q1 tile: the 3x3's work without
+//              its shifted reads and halo;
+//   kConvOnly  q2 = q1, no conv2: conv1 + conv3 alone.
+// The probe's `dot2d` variant split a 3D dot into per-frame 2D dots, a
+// question of how Mosaic lowers the code; here every block is already a band
+// of one frame, so `dot2d` runs kFull. Its F (frames per grid step) has no
+// counterpart either: a block is a band of one frame whatever F is.
+enum class Variant { kFull, kNoShift, kConvOnly };
 
 struct Params {
   const int8_t* x;
@@ -83,51 +67,7 @@ struct Params {
   int H, W, C, P, d;
 };
 
-// One warp task of the A(M x K) * B(K x 64) product: A rows given as byte
-// offsets (one per fragment row) from `abase`, B rows (output channels,
-// reduction contiguous) `ldb` bytes apart from `bbase`. Accumulates into acc.
-template <bool kSharedA>
-__device__ __forceinline__ void warp_mma(int (&acc)[kMT][kNT][4], const int8_t* abase,
-                                         const int (&aoff)[kMT][2], const int8_t* bbase,
-                                         int ldb, int K) {
-#pragma unroll 2
-  for (int k0 = 0; k0 < K; k0 += 32) {
-    int a[kMT][4];
-#pragma unroll
-    for (int i = 0; i < kMT; ++i) {
-      const int8_t* r0 = abase + aoff[i][0] + k0;
-      const int8_t* r1 = abase + aoff[i][1] + k0;
-      if (kSharedA) {
-        a[i][0] = ld_shared(r0);
-        a[i][1] = ld_shared(r1);
-        a[i][2] = ld_shared(r0 + 16);
-        a[i][3] = ld_shared(r1 + 16);
-      } else {
-        a[i][0] = ld_global(r0);
-        a[i][1] = ld_global(r1);
-        a[i][2] = ld_global(r0 + 16);
-        a[i][3] = ld_global(r1 + 16);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      const int8_t* bj = bbase + (size_t)j * 8 * ldb + k0;
-      const int b[2] = {ld_global(bj), ld_global(bj + 16)};
-#pragma unroll
-      for (int i = 0; i < kMT; ++i) mma_s8(acc[i][j], a[i], b);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero_acc(int (&acc)[kMT][kNT][4]) {
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-}
-
+template <Variant V>
 __global__ void __launch_bounds__(kThreads) fused_bottleneck_kernel(Params p) {
   extern __shared__ __align__(16) int8_t smem[];
   const int H = p.H, W = p.W, C = p.C, P = p.P, d = p.d;
@@ -146,17 +86,19 @@ __global__ void __launch_bounds__(kThreads) fused_bottleneck_kernel(Params p) {
   const int ntasks_p = P / (8 * kNT);
   int acc[kMT][kNT][4];
 
-  {  // the zero border, and the halo rows that fall outside the frame
+  if constexpr (V == Variant::kFull) {  // the zero border, and the halo rows outside the frame
     int4* z = reinterpret_cast<int4*>(q1);
     const int n16 = hr * tw * ps / 16;
     for (int i = threadIdx.x; i < n16; i += kThreads) z[i] = make_int4(0, 0, 0, 0);
+    __syncthreads();
   }
-  __syncthreads();
 
-  // ---- phase 1: conv1 over the in-frame rows of the band plus halo
+  // ---- phase 1: conv1 over the in-frame rows of the band plus halo (the
+  // probe variants: the band's rows only)
   {
-    const int m_lo = max(0, d - r0) * W;           // tile rows before the frame's top
-    const int m_hi = min(hr, H - r0 + d) * W;      // ... and past its bottom
+    const bool full = V == Variant::kFull;
+    const int m_lo = full ? max(0, d - r0) * W : d * W;          // tile rows before the frame's top
+    const int m_hi = full ? min(hr, H - r0 + d) * W : (d + rows) * W;  // ... and past its bottom
     const int mtasks = (m_hi - m_lo + 16 * kMT - 1) / (16 * kMT);
     for (int task = warp; task < mtasks * ntasks_p; task += kWarps) {
       const int mbase = m_lo + (task / ntasks_p) * 16 * kMT;
@@ -183,7 +125,8 @@ __global__ void __launch_bounds__(kThreads) fused_bottleneck_kernel(Params p) {
             const int m = mbase + i * 16 + h * 8 + g;
             if (m >= m_hi) continue;
             const int rr = m / W, col = m - rr * W;
-            int8_t* dst = q1 + ((size_t)rr * tw + col + d) * ps + n;
+            int8_t* dst = V == Variant::kConvOnly ? q2 + (size_t)(m - m_lo) * ps + n
+                                                  : q1 + ((size_t)rr * tw + col + d) * ps + n;
             dst[0] = fold(acc[i][j][2 * h], a0, b0);
             dst[1] = fold(acc[i][j][2 * h + 1], a1, b1);
           }
@@ -195,8 +138,9 @@ __global__ void __launch_bounds__(kThreads) fused_bottleneck_kernel(Params p) {
   const int M = rows * W;  // output pixels of the band
   const int mtasks = (M + 16 * kMT - 1) / (16 * kMT);
 
-  // ---- phase 2: the 3x3 (dilation d) as 9 taps over the q1 tile
-  for (int task = warp; task < mtasks * ntasks_p; task += kWarps) {
+  // ---- phase 2: the 3x3 (dilation d) as 9 taps over the q1 tile (kNoShift:
+  // 9 reads of the centre; kConvOnly: none, q2 = q1)
+  for (int task = warp; V != Variant::kConvOnly && task < mtasks * ntasks_p; task += kWarps) {
     const int mbase = (task / ntasks_p) * 16 * kMT;
     const int n0 = (task % ntasks_p) * 8 * kNT;
     int aoff[kMT][2];
@@ -211,7 +155,8 @@ __global__ void __launch_bounds__(kThreads) fused_bottleneck_kernel(Params p) {
     zero_acc(acc);
     for (int tap = 0; tap < 9; ++tap) {
       const int ky = tap / 3, kx = tap - ky * 3;
-      const int8_t* abase = q1 + (ky * d * tw + kx * d) * ps;
+      const int8_t* abase = V == Variant::kNoShift ? q1 + (d * tw + d) * ps
+                                                   : q1 + (ky * d * tw + kx * d) * ps;
       const int8_t* bbase = p.w2 + (size_t)tap * P * P + (size_t)(n0 + g) * P + t * 4;
       warp_mma<true>(acc, abase, aoff, bbase, P, P);
     }
@@ -231,7 +176,7 @@ __global__ void __launch_bounds__(kThreads) fused_bottleneck_kernel(Params p) {
         }
     }
   }
-  __syncthreads();
+  if constexpr (V != Variant::kConvOnly) __syncthreads();
 
   // ---- phase 3: conv3 + residual + requant, straight to global memory
   const int ntasks_c = C / (8 * kNT);
@@ -279,30 +224,12 @@ size_t smem_bytes(int w, int p, int d) {
   return ((size_t)(kR + 2 * d) * (w + 2 * d) + (size_t)kR * w) * ((size_t)p + kPad);
 }
 
-}  // namespace
-
-// Blocks of the kernel resident on one SM for a band of width w with p mid
-// channels at dilation d (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or
-// -1 on an error.
-extern "C" int fused_bottleneck_blocks_per_sm(int w, int p, int d) {
-  const size_t smem = smem_bytes(w, p, d);
-  int blocks = 0;
-  if (cudaFuncSetAttribute(fused_bottleneck_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fused_bottleneck_kernel, kThreads,
-                                                    smem) != cudaSuccess)
-    return -1;
-  return blocks;
-}
-
-// Plain C entry point (loaded with ctypes). Launches on `stream`, does not
-// synchronise, allocates nothing; returns cudaGetLastError() of the launch,
-// or cudaErrorInvalidValue for a shape the kernel does not take.
-extern "C" int fused_bottleneck_s8(
-    const void* x, void* out, const void* w1, const void* w2, const void* w3,
-    const void* a1, const void* b1, const void* a2, const void* b2,
-    const void* a3, const void* b3, const void* sid,
-    int n, int h, int w, int c, int p, int d, void* stream) {
+// Launches the kernel of variant V (see the C entry points below).
+template <Variant V>
+int launch(const void* x, void* out, const void* w1, const void* w2, const void* w3,
+           const void* a1, const void* b1, const void* a2, const void* b2,
+           const void* a3, const void* b3, const void* sid,
+           int n, int h, int w, int c, int p, int d, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0) return (int)cudaSuccess;
   if (c % 64 || p % 64 || d < 1 || n > 65535) return (int)cudaErrorInvalidValue;
   Params prm;
@@ -325,9 +252,42 @@ extern "C" int fused_bottleneck_s8(
   prm.d = d;
   const size_t smem = smem_bytes(w, p, d);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_bottleneck_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fused_bottleneck_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((h + kR - 1) / kR, n);
-  fused_bottleneck_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(prm);
+  fused_bottleneck_kernel<V><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(prm);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// Blocks of K2 resident on one SM for a band of width w with p mid
+// channels at dilation d (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or
+// -1 on an error.
+extern "C" int fused_bottleneck_blocks_per_sm(int w, int p, int d) {
+  const size_t smem = smem_bytes(w, p, d);
+  const auto kernel = fused_bottleneck_kernel<Variant::kFull>;
+  int blocks = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem) !=
+          cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// Plain C entry points (loaded with ctypes), one per variant, all with the
+// same arguments. Each launches on `stream`, does not synchronise, allocates
+// nothing; returns cudaGetLastError() of the launch, or cudaErrorInvalidValue
+// for a shape the kernel does not take. fused_bottleneck_s8 is K2.
+#define FUSED_BOTTLENECK_ENTRY(name, variant)                                                   \
+  extern "C" int name(const void* x, void* out, const void* w1, const void* w2, const void* w3, \
+                      const void* a1, const void* b1, const void* a2, const void* b2,           \
+                      const void* a3, const void* b3, const void* sid, int n, int h, int w,     \
+                      int c, int p, int d, void* stream) {                                      \
+    return launch<variant>(x, out, w1, w2, w3, a1, b1, a2, b2, a3, b3, sid, n, h, w, c, p, d,  \
+                           stream);                                                             \
+  }
+FUSED_BOTTLENECK_ENTRY(fused_bottleneck_s8, Variant::kFull)
+FUSED_BOTTLENECK_ENTRY(fused_bottleneck_noshift_s8, Variant::kNoShift)
+FUSED_BOTTLENECK_ENTRY(fused_bottleneck_convonly_s8, Variant::kConvOnly)

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, ``build/lib<name>.so`` inside this package
-(listed in ``.gitignore``). A library is rebuilt when its source is newer.
+(listed in ``.gitignore``). A library is rebuilt when its source, or any
+``csrc/*.cuh`` header (the sources include them by name), is newer.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all of
 them. Nothing here runs at import time: the CPU tests import every module of
 the port on a machine without ``nvcc``.
@@ -58,7 +59,10 @@ def _paths(name: str):
 
 def _stale(name: str) -> bool:
     src, lib, _ = _paths(name)
-    return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src)
+    if not os.path.exists(lib):
+        return True
+    headers = [os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
+    return os.path.getmtime(lib) < max(os.path.getmtime(f) for f in [src, *headers])
 
 
 def build_all(names: Iterable[str]) -> Dict[str, str]:

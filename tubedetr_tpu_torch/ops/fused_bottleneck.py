@@ -142,8 +142,10 @@ def blocks_per_sm(w: int, p: int, dilation: int) -> int:
     return blocks
 
 
-def _launch(xq, out, fold: BottleneckFold, dilation: int) -> None:
-    fn = _cuda_build.load("fused_bottleneck").fused_bottleneck_s8
+def _launch(xq, out, fold: BottleneckFold, dilation: int, entry: str = "fused_bottleneck_s8") -> None:
+    """Launch ``entry`` of ``csrc/fused_bottleneck.cu``: K2, or one of the
+    probe variants of ``ops/probe_bottleneck.py`` (same arguments)."""
+    fn = getattr(_cuda_build.load("fused_bottleneck"), entry)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -157,31 +159,37 @@ def _launch(xq, out, fold: BottleneckFold, dilation: int) -> None:
         n, h, w, c, p, dilation, stream,
     )
     if err != 0:
-        raise RuntimeError(f"fused_bottleneck kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
 
 
-def fused_bottleneck_block(xq: torch.Tensor, fold: BottleneckFold, dilation: int = 1):
-    """One fused stride-1 bottleneck on the int8 stream ``(N, H, W, C)``:
-    returns ``(out int8 (N, H, W, C), fold.so)``."""
+def check_fold(fold: BottleneckFold, device: torch.device) -> None:
+    """Raise on a fold that the CUDA kernels do not take on ``device``."""
     c, p = fold.channels
-    if xq.dtype != torch.int8 or xq.dim() != 4 or xq.shape[-1] != c:
-        raise ValueError(f"expected (N, H, W, {c}) int8, got {tuple(xq.shape)} {xq.dtype}")
-    if dilation < 1:
-        raise ValueError(f"dilation must be >= 1, got {dilation}")
-    if xq.device.type == "cpu":
-        return fused_bottleneck_plain(xq, fold, dilation), fold.so
-    if xq.device.type != "cuda":
-        raise ValueError(f"unsupported device {xq.device}")
-    if not xq.is_contiguous():
-        raise ValueError("the int8 stream must be contiguous (N, H, W, C)")
     if c % CHANNEL_GROUP or p % CHANNEL_GROUP:
         raise ValueError(
             f"K2 takes channel counts that are multiples of {CHANNEL_GROUP}; got C={c}, P={p}"
         )
     for name in ("w1", "w2", "w3", "a1", "b1", "a2", "b2", "a3", "b3", "sid"):
         t = getattr(fold, name)
-        if t.device != xq.device or not t.is_contiguous():
-            raise ValueError(f"fold.{name} must be contiguous on {xq.device}")
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"fold.{name} must be contiguous on {device}")
+
+
+def check_input(xq: torch.Tensor, fold: BottleneckFold, dilation: int) -> None:
+    """Raise on a stream, fold or dilation that K2 does not take: on the CPU
+    (its plain version) or on the card (the kernel)."""
+    c, p = fold.channels
+    if xq.dtype != torch.int8 or xq.dim() != 4 or xq.shape[-1] != c:
+        raise ValueError(f"expected (N, H, W, {c}) int8, got {tuple(xq.shape)} {xq.dtype}")
+    if dilation < 1:
+        raise ValueError(f"dilation must be >= 1, got {dilation}")
+    if xq.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {xq.device}")
+    if xq.device.type == "cpu":
+        return
+    if not xq.is_contiguous():
+        raise ValueError("the int8 stream must be contiguous (N, H, W, C)")
+    check_fold(fold, xq.device)
     n, _, w, _ = xq.shape
     if n > 65535:
         raise ValueError("at most 65535 frames per launch")
@@ -191,6 +199,14 @@ def fused_bottleneck_block(xq: torch.Tensor, fold: BottleneckFold, dilation: int
             f"{dilation} needs {smem_bytes(w, p, dilation)} bytes of shared memory, "
             f"more than {SMEM_LIMIT}"
         )
+
+
+def fused_bottleneck_block(xq: torch.Tensor, fold: BottleneckFold, dilation: int = 1):
+    """One fused stride-1 bottleneck on the int8 stream ``(N, H, W, C)``:
+    returns ``(out int8 (N, H, W, C), fold.so)``."""
+    check_input(xq, fold, dilation)
+    if xq.device.type == "cpu":
+        return fused_bottleneck_plain(xq, fold, dilation), fold.so
     out = torch.empty_like(xq)
     with torch.cuda.device(xq.device):
         _launch(xq, out, fold, dilation)

@@ -21,7 +21,12 @@ from tubedetr_tpu_torch.ops.fused_bottleneck import (
     fused_bottleneck_block,
     fused_bottleneck_plain,
 )
-from tubedetr_tpu_torch.ops.probe_bottleneck import bottleneck_variant, flat_bottleneck
+from tubedetr_tpu_torch.ops import _cuda_build
+from tubedetr_tpu_torch.ops.probe_bottleneck import (
+    bottleneck_variant,
+    flat_bottleneck,
+    flat_smem_bytes,
+)
 from tubedetr_tpu_torch.ops.probe_mm import bf16_mm, int8_mm, int8_mm_frames
 from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize, resize_normalize_plain
 from tubedetr_tpu_torch.probes import fused_variants as fv
@@ -256,6 +261,19 @@ def test_flat_bottleneck_matches_plain(case, variant):
     assert flat_bottleneck.launches == before + 1
     assert torch.equal(out, fv.plain_call(variant, x, fold, h, w)())
     assert not out[:, h * w:].any()
+
+
+@pytest.mark.parametrize("variant", ["hwpad", "im2col"])
+def test_flat_smem_bytes_is_the_kernels_count(variant):
+    """The wrapper's shared-memory count for a P5 block, which it checks
+    before a launch, is the one the built kernel requests."""
+    require_cuda()
+    import ctypes
+
+    fn = _cuda_build.load("probe_flat_bottleneck").flat_bottleneck_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    for w, p in ((fv.W, fv.P), (13, 128), (38, 64)):
+        assert flat_smem_bytes(variant, w, p) == fn(int(variant == "im2col"), w, p), (w, p)
 
 
 def test_probes_reject_what_they_cannot_take():

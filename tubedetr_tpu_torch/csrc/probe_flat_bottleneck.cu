@@ -46,7 +46,8 @@ constexpr int kPad = 16;  // bytes of padding per row in shared memory
 enum class Flat { kHwPad, kIm2col };
 
 // Output rows a block: the im2col patch (kRB x (9P + kPad)) must fit beside
-// the q1 tile, 64 rows at P = 256.
+// the q1 tile, 64 rows at P = 256. Mirrored by FLAT_ROWS_PER_BLOCK in
+// ops/probe_bottleneck.py, held to flat_bottleneck_smem_bytes by a card test.
 template <Flat V>
 __host__ __device__ constexpr int rows_per_block() {
   return V == Flat::kHwPad ? 128 : 64;
@@ -302,3 +303,10 @@ int launch(const void* x, void* out, const void* w1, const void* w2, const void*
   }
 FLAT_BOTTLENECK_ENTRY(flat_bottleneck_hwpad_s8, Flat::kHwPad)
 FLAT_BOTTLENECK_ENTRY(flat_bottleneck_im2col_s8, Flat::kIm2col)
+
+// Shared memory of one block of the variant (im2col != 0: im2col, else
+// hwpad) at width w with p mid channels: what the wrapper's
+// flat_smem_bytes must count.
+extern "C" long long flat_bottleneck_smem_bytes(int im2col, int w, int p) {
+  return (long long)(im2col ? smem_bytes<Flat::kIm2col>(w, p) : smem_bytes<Flat::kHwPad>(w, p));
+}

@@ -142,24 +142,33 @@ def blocks_per_sm(w: int, p: int, dilation: int) -> int:
     return blocks
 
 
-def _launch(xq, out, fold: BottleneckFold, dilation: int, entry: str = "fused_bottleneck_s8") -> None:
-    """Launch ``entry`` of ``csrc/fused_bottleneck.cu``: K2, or one of the
-    probe variants of ``ops/probe_bottleneck.py`` (same arguments)."""
-    fn = getattr(_cuda_build.load("fused_bottleneck"), entry)
+def launch_fold_kernel(lib: str, entry: str, xq, out, fold: BottleneckFold, dims) -> None:
+    """Launch ``entry`` of ``csrc/<lib>.cu`` on the current CUDA stream. Every
+    bottleneck entry (K2 and the probe variants of ``ops/probe_bottleneck.py``)
+    takes the int8 input and output, the fold's nine tensors and ``sid``, the
+    six ints ``dims``, then the stream."""
+    fn = getattr(_cuda_build.load(lib), entry)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    n, h, w, c = xq.shape
-    p = fold.w1.shape[0]
-    stream = torch.cuda.current_stream(xq.device).cuda_stream
-    err = fn(
-        xq.data_ptr(), out.data_ptr(), fold.w1.data_ptr(), fold.w2.data_ptr(),
-        fold.w3.data_ptr(), fold.a1.data_ptr(), fold.b1.data_ptr(), fold.a2.data_ptr(),
-        fold.b2.data_ptr(), fold.a3.data_ptr(), fold.b3.data_ptr(), fold.sid.data_ptr(),
-        n, h, w, c, p, dilation, stream,
-    )
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream(xq.device).cuda_stream
+        err = fn(
+            xq.data_ptr(), out.data_ptr(), fold.w1.data_ptr(), fold.w2.data_ptr(),
+            fold.w3.data_ptr(), fold.a1.data_ptr(), fold.b1.data_ptr(), fold.a2.data_ptr(),
+            fold.b2.data_ptr(), fold.a3.data_ptr(), fold.b3.data_ptr(), fold.sid.data_ptr(),
+            *dims, stream,
+        )
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+
+
+def launch_k2(xq, out, fold: BottleneckFold, dilation: int, entry: str = "fused_bottleneck_s8") -> None:
+    """Launch ``entry`` of ``csrc/fused_bottleneck.cu``: K2, or one of its
+    probe variants, on the ``(N, H, W, C)`` stream."""
+    n, h, w, c = xq.shape
+    launch_fold_kernel("fused_bottleneck", entry, xq, out, fold,
+                       (n, h, w, c, fold.w1.shape[0], dilation))
 
 
 def check_fold(fold: BottleneckFold, device: torch.device) -> None:
@@ -175,21 +184,30 @@ def check_fold(fold: BottleneckFold, device: torch.device) -> None:
             raise ValueError(f"fold.{name} must be contiguous on {device}")
 
 
+def check_stream(xq: torch.Tensor, fold: BottleneckFold, layout: str = "N, H, W") -> None:
+    """Raise on an int8 stream ``(layout..., C)`` that the kernels reading
+    ``fold`` do not take: any on the CPU (their plain versions), contiguous
+    and beside its fold on the card."""
+    c, _ = fold.channels
+    if xq.dtype != torch.int8 or xq.dim() != layout.count(",") + 2 or xq.shape[-1] != c:
+        raise ValueError(f"expected ({layout}, {c}) int8, got {tuple(xq.shape)} {xq.dtype}")
+    if xq.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {xq.device}")
+    if xq.device.type == "cuda":
+        if not xq.is_contiguous():
+            raise ValueError(f"the int8 stream must be contiguous ({layout}, C)")
+        check_fold(fold, xq.device)
+
+
 def check_input(xq: torch.Tensor, fold: BottleneckFold, dilation: int) -> None:
     """Raise on a stream, fold or dilation that K2 does not take: on the CPU
     (its plain version) or on the card (the kernel)."""
-    c, p = fold.channels
-    if xq.dtype != torch.int8 or xq.dim() != 4 or xq.shape[-1] != c:
-        raise ValueError(f"expected (N, H, W, {c}) int8, got {tuple(xq.shape)} {xq.dtype}")
+    check_stream(xq, fold)
     if dilation < 1:
         raise ValueError(f"dilation must be >= 1, got {dilation}")
-    if xq.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {xq.device}")
     if xq.device.type == "cpu":
         return
-    if not xq.is_contiguous():
-        raise ValueError("the int8 stream must be contiguous (N, H, W, C)")
-    check_fold(fold, xq.device)
+    _, p = fold.channels
     n, _, w, _ = xq.shape
     if n > 65535:
         raise ValueError("at most 65535 frames per launch")
@@ -208,8 +226,7 @@ def fused_bottleneck_block(xq: torch.Tensor, fold: BottleneckFold, dilation: int
     if xq.device.type == "cpu":
         return fused_bottleneck_plain(xq, fold, dilation), fold.so
     out = torch.empty_like(xq)
-    with torch.cuda.device(xq.device):
-        _launch(xq, out, fold, dilation)
+    launch_k2(xq, out, fold, dilation)
     fused_bottleneck_block.launches += 1
     return out, fold.so
 

@@ -20,20 +20,18 @@ reaches the plain version.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from tubedetr_tpu_torch.ops import _cuda_build
 from tubedetr_tpu_torch.ops.fused_bottleneck import (
     SMEM_LIMIT,
     SMEM_PAD,
     BottleneckFold,
-    _launch,
     _requant,
-    check_fold,
     check_input,
+    check_stream,
     fused_bottleneck_plain,
+    launch_fold_kernel,
+    launch_k2,
 )
 from tubedetr_tpu_torch.ops.int8_conv import int_mm
 
@@ -44,7 +42,9 @@ _ENTRY = {
     "noshift": "fused_bottleneck_noshift_s8",
     "convonly": "fused_bottleneck_convonly_s8",
 }
-FLAT_ROWS_PER_BLOCK = {"hwpad": 128, "im2col": 64}  # kRB of each variant
+# rows_per_block<V>() of csrc/probe_flat_bottleneck.cu; a card test holds
+# flat_smem_bytes to the library's own count
+FLAT_ROWS_PER_BLOCK = {"hwpad": 128, "im2col": 64}
 
 
 def probe_fold(w1, w2, w3, a=(1e-4, 1e-4, 1e-4), b=(0.0, 0.0, 0.0), sid=0.01) -> BottleneckFold:
@@ -99,8 +99,7 @@ def bottleneck_variant(xq: torch.Tensor, fold: BottleneckFold, variant: str) -> 
     if xq.device.type == "cpu":
         return bottleneck_variant_plain(xq, fold, variant)
     out = torch.empty_like(xq)
-    with torch.cuda.device(xq.device):
-        _launch(xq, out, fold, 1, _ENTRY[variant])
+    launch_k2(xq, out, fold, 1, _ENTRY[variant])
     bottleneck_variant.launches += 1
     return out
 
@@ -133,42 +132,24 @@ def flat_bottleneck(xq: torch.Tensor, fold: BottleneckFold, variant: str, h: int
     followed by at least ``w + 1`` pad rows; the pad rows come out 0."""
     if variant not in FLAT_VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; expected one of {FLAT_VARIANTS}")
-    c, p = fold.channels
-    if xq.dtype != torch.int8 or xq.dim() != 3 or xq.shape[-1] != c:
-        raise ValueError(f"expected (N, HWP, {c}) int8, got {tuple(xq.shape)} {xq.dtype}")
+    check_stream(xq, fold, "N, HWP")
     if xq.shape[1] - h * w < w + 1:
         raise ValueError(
             f"a frame of {h}x{w} needs at least {w + 1} pad rows after its {h * w} real "
             f"rows (the vertical border); got {xq.shape[1]} rows a frame"
         )
-    n, hwp, _ = xq.shape
     if xq.device.type == "cpu":
         return flat_bottleneck_plain(xq, fold, h, w)
-    if xq.device.type != "cuda":
-        raise ValueError(f"unsupported device {xq.device}")
-    if not xq.is_contiguous():
-        raise ValueError("the int8 stream must be contiguous (N, HWP, C)")
-    check_fold(fold, xq.device)
+    n, hwp, c = xq.shape
+    p = fold.w1.shape[0]
     if flat_smem_bytes(variant, w, p) > SMEM_LIMIT:
         raise ValueError(
             f"P5 {variant} at width {w} with {p} channels needs "
             f"{flat_smem_bytes(variant, w, p)} bytes of shared memory, more than {SMEM_LIMIT}"
         )
-    fn = getattr(_cuda_build.load("probe_flat_bottleneck"), f"flat_bottleneck_{variant}_s8")
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
     out = torch.empty_like(xq)
-    with torch.cuda.device(xq.device):
-        stream = torch.cuda.current_stream(xq.device).cuda_stream
-        err = fn(
-            xq.data_ptr(), out.data_ptr(), fold.w1.data_ptr(), fold.w2.data_ptr(),
-            fold.w3.data_ptr(), fold.a1.data_ptr(), fold.b1.data_ptr(), fold.a2.data_ptr(),
-            fold.b2.data_ptr(), fold.a3.data_ptr(), fold.b3.data_ptr(), fold.sid.data_ptr(),
-            n, hwp, h, w, c, p, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"flat_bottleneck_{variant}_s8 kernel launch failed: CUDA error {err}")
+    launch_fold_kernel("probe_flat_bottleneck", f"flat_bottleneck_{variant}_s8", xq, out, fold,
+                       (n, hwp, h, w, c, p))
     flat_bottleneck.launches += 1
     return out
 

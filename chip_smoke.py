@@ -29,6 +29,9 @@ line:
    read just after, each kernel held exactly to its plain version, and
    noshift and convonly timed beside K2 at layer3's serving shape. They run
    after the serving phases so that their GBs of inputs cannot move those.
+   For P1-P3 the entries also carry the kernel's registers, spills and
+   shared memory (its build log; a spill or an ignored ``setmaxnreg``
+   fails) and the wrapper's host microseconds a call.
 
 Then one ``kernels`` JSON line, the ``nvidia-smi`` line again, and, last, the
 ``ok`` JSON line. There is no CPU path: without a card the script exits 2.
@@ -315,9 +318,9 @@ def phase_k2():
         "plain_ms": per_pass("plain_ms"),
         "bound_ms": bound,
         "bound_by": "operations" if by_ops >= bound - by_ops else "bytes",
-        # no one PyTorch call computes a whole int8 bottleneck: the yardstick
-        # is the plain version, the unfused int8 route on cuBLASLt
-        "library_ms": per_pass("plain_ms"),
+        # no one PyTorch call computes a whole int8 bottleneck (the plain
+        # version, the unfused int8 route on cuBLASLt, is in plain_ms)
+        "library_ms": None,
         "per": f"one backbone pass: {K2_PER_PASS} launches at N={K2_TIME_FRAMES}",
         "cases": cases,
     }
@@ -349,6 +352,35 @@ def probe_entry(name, source, replaces, cases, head, library_ms):
         "bound_by": c["bound_by"], "library_ms": library_ms, "per": f"one launch, {head}",
         "cases": cases,
     }
+
+
+def probe_mm_usage():
+    """Registers, spills and shared memory of the two instantiations of
+    P1-P3's kernel (``s8``: P1 and P3, ``bf16``: P2), from the build log of
+    ``libprobe_mm.so`` and the dynamic shared memory the library requests.
+    Fails on a spill or on any ptxas message about ``setmaxnreg`` (it is
+    ignored where the roles do not split in one if/else)."""
+    from tubedetr_tpu_torch.ops import _cuda_build, probe_mm
+
+    log = _cuda_build.build_log("probe_mm")
+    ignored = [line.strip() for line in log.splitlines() if "setmaxnreg" in line]
+    if ignored:
+        fail(f"probe_mm: ptxas on setmaxnreg: {ignored}")
+    usage = _cuda_build.ptxas_usage(log)
+    dynamic = probe_mm.smem_bytes()
+    out = {}
+    for kind in ("s8", "bf16"):
+        found = [v for name, v in usage.items() if f"probe_mm_{kind}_kernel" in name]
+        if len(found) != 1:
+            fail(f"probe_mm: {len(found)} entries of the {kind} kernel in its build log")
+        u = found[0]
+        spills = u["spill_store_bytes"] + u["spill_load_bytes"]
+        if spills:
+            fail(f"probe_mm {kind} kernel spills: {u}")
+        out[kind] = {"registers": u["registers"], "spill_bytes": spills,
+                     "stack_bytes": u["stack_bytes"], "smem_bytes": u["smem_bytes"] + dynamic,
+                     "ptxas_notes": u["notes"]}
+    return out
 
 
 def phase_probes():
@@ -416,6 +448,21 @@ def phase_probes():
             fail(f"{key}: the plain version differs between the card and the CPU")
         mm_cases[key] = case
         del out, ref
+    # registers, spills and shared memory from the build log, and the
+    # wrapper's host time a call (100 enqueues, no synchronize between),
+    # which must stay below the kernel's time for the events to time the kernel
+    kernel_usage = probe_mm_usage()
+    mm_build = {}
+    for key, kind in (("P1", "s8"), ("P2", "bf16"), ("P3", "s8")):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(100):
+            prods[key].call()
+        host_us = (time.perf_counter() - t) / 100 * 1e6
+        torch.cuda.synchronize()
+        mm_build[key] = {**kernel_usage[kind], "host_us_per_call": host_us}
+        say(f"{key}: host {host_us:.1f} us a call against {mm_cases[key]['ms'] * 1e3:.1f} us "
+            f"of kernel; {json.dumps(kernel_usage[kind])}")
     lib_s8 = {r["F"]: r["ms"] for r in mm_rows if r["probe"] == "library"}
     xb, wtb = x.to(torch.bfloat16), wt.to(torch.bfloat16)
     lib_bf16_ms = cuda_ms(lambda: torch.mm(xb, wtb.t(), out_dtype=torch.float32))
@@ -431,6 +478,8 @@ def phase_probes():
     ]
     entries[0]["library"] = entries[2]["library"] = "torch._int_mm (cuBLASLt)"
     entries[1]["library"] = "torch.mm bf16, out_dtype float32"
+    for entry, key in zip(entries, ("P1", "P2", "P3")):
+        entry.update(mm_build[key])
 
     # ---- P4 and P5 at the script's shapes
     n, h, w, c, p = fv.N, fv.H, fv.W, fv.C, fv.P

@@ -200,16 +200,22 @@ def test_int8_pipeline_on_the_card_matches_the_cpu(tmp_path):
         np.testing.assert_allclose(out[k], ref[k], atol=chip_smoke.SMALL_INT8_ATOL[k], err_msg=k)
 
 
-PROBE_MM_CASES = {  # (frames, rows a frame, K, N): "ragged" tiles a frame of 37 rows
-    "small": (2, 64, 64, 128),
-    "ragged": (3, 37, 96, 192),
+PROBE_MM_CASES = {  # (frames, rows a frame, K, N)
+    "small": (2, 64, 64, 128),  # K and N below one 128-byte slice and one 256-column tile
+    "ragged": (3, 37, 96, 192),  # frames of 37 rows: one partial tile each
+    # the probe's widths: P1's 1452 rows end in a 44-row tile, P3's frames in 100-row tiles
+    "probe-widths": (3, 484, 1024, 256),
+    # 304 (P1) and 320 (P3) tiles, more than an H100's 132 SMs: the persistent
+    # loop wraps, the 4-stage ring's phases cross tiles (3 slices of K a tile in
+    # s8, 5 in bf16, the last one partial), and N spans two column tiles
+    "wrap": (40, 484, 320, 512),
 }
 
 
 @pytest.mark.parametrize("case", list(PROBE_MM_CASES))
 def test_probe_gemms_match_plain(case):
     """P1, P2, P3 equal their plain versions exactly, on the card and on the
-    CPU; P3's last tile of every frame is partial at 37 rows a frame."""
+    CPU, where tiles are partial in rows, in columns and in K."""
     require_cuda()
     frames, hw, k, n = PROBE_MM_CASES[case]
     x, wt = im.make_inputs(np.random.RandomState(0), frames, hw, k, n, device="cpu")
@@ -274,6 +280,27 @@ def test_flat_smem_bytes_is_the_kernels_count(variant):
     fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
     for w, p in ((fv.W, fv.P), (13, 128), (38, 64)):
         assert flat_smem_bytes(variant, w, p) == fn(int(variant == "im2col"), w, p), (w, p)
+
+
+def test_probe_gemms_reject_unaligned_bases():
+    """TMA reads from 16-byte aligned bases: the wrappers raise for a
+    contiguous view that starts one byte in, and the C entry refuses it."""
+    require_cuda()
+    from tubedetr_tpu_torch.ops import probe_mm
+
+    x, wt = im.make_inputs(np.random.RandomState(0), 1, 32, 64, 64, device="cuda")
+    buf = torch.zeros(x.numel() + 1, dtype=torch.int8, device="cuda")
+    shifted = buf[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.storage_offset() == 1
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        int8_mm(shifted, wt)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        int8_mm_frames(shifted.view(1, 32, 64), wt)
+    out = torch.empty(32, 64, dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        probe_mm._launch("probe_mm_s8", shifted, wt, out, 32)
+    assert torch.equal(int8_mm(x, wt), int8_mm(shifted.clone(), wt))
 
 
 def test_probes_reject_what_they_cannot_take():

@@ -90,7 +90,7 @@ def test_new_int8_modules_are_scanned():
     names = {os.path.relpath(p, ROOT) for p in _port_files()}
     for mod in ("ops/int8_conv.py", "ops/fused_bottleneck.py", "models/quantize.py",
                 "ops/probe_mm.py", "ops/probe_bottleneck.py", "probes/__init__.py",
-                "probes/int8_matmul.py", "probes/fused_variants.py"):
+                "probes/int8_matmul.py", "probes/fused_variants.py", "probes/mm_ablations.py"):
         assert os.path.join("tubedetr_tpu_torch", mod) in names
 
 

@@ -45,6 +45,7 @@ from tubedetr_tpu_torch.ops.probe_bottleneck import (
 from tubedetr_tpu_torch.ops.probe_mm import bf16_mm, int8_mm, int8_mm_frames
 from tubedetr_tpu_torch.probes import fused_variants as fv
 from tubedetr_tpu_torch.probes import int8_matmul as im
+from tubedetr_tpu_torch.probes import mm_ablations
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, H, W, HWP, C, P = 4, 6, 6, 48, 128, 32
@@ -326,3 +327,59 @@ def test_a_changed_header_makes_every_library_stale(tmp_path, monkeypatch):
     assert _cuda_build._stale("k")
     (build / "libk.so").unlink()
     assert _cuda_build._stale("k")
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120probe_mm_bf16_kernelE14CUtensorMap_stS0_PfNS_5ShapeE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120probe_mm_bf16_kernelE14CUtensorMap_stS0_PfNS_5ShapeE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compile time = 164.962 ms
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118probe_mm_s8_kernelE14CUtensorMap_stS0_PiNS_5ShapeE' for 'sm_90a'
+ptxas info    : (C7508) Potential Performance Loss: setmaxnreg ignored; unable to determine register count at entry
+ptxas info    : Function properties for _Z6helperv
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118probe_mm_s8_kernelE14CUtensorMap_stS0_PiNS_5ShapeE
+    16 bytes stack frame, 12 bytes spill stores, 20 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 2048 bytes smem, 912 bytes cmem[0]
+"""
+
+
+def test_ptxas_usage_reads_each_entry(tmp_path, monkeypatch):
+    """The ``-Xptxas -v`` log is read per kernel entry: registers, stack,
+    spills and static shared memory from that entry's own lines (not from a
+    device function's properties), and the numbered notes printed while it
+    was compiled. A library never built has an empty log."""
+    usage = _cuda_build.ptxas_usage(PTXAS_LOG)
+    bf16, s8 = (next(v for k, v in usage.items() if name in k)
+                for name in ("probe_mm_bf16_kernel", "probe_mm_s8_kernel"))
+    assert len(usage) == 2
+    assert bf16 == {"registers": 168, "stack_bytes": 0, "spill_store_bytes": 0,
+                    "spill_load_bytes": 0, "smem_bytes": 0, "notes": []}
+    assert s8["registers"] == 96 and s8["smem_bytes"] == 2048
+    assert (s8["stack_bytes"], s8["spill_store_bytes"], s8["spill_load_bytes"]) == (16, 12, 20)
+    assert len(s8["notes"]) == 1 and "setmaxnreg ignored" in s8["notes"][0]
+    monkeypatch.setattr(_cuda_build, "BUILD", str(tmp_path))
+    assert _cuda_build.build_log("probe_mm") == ""
+    (tmp_path / "libprobe_mm.log").write_text(PTXAS_LOG)
+    assert _cuda_build.build_log("probe_mm") == PTXAS_LOG
+
+
+@pytest.mark.parametrize("name", list(mm_ablations.ABLATIONS))
+def test_mm_ablations_apply_to_the_sources(name):
+    """Each ablation of P1-P3's kernel is one set of edits to the current
+    ``probe_mm.cu`` and headers, each edit matching exactly once; ``base``
+    is the sources as they are."""
+    base = mm_ablations.sources("base")
+    edited = mm_ablations.sources(name)
+    assert set(edited) == set(base) and "probe_mm.cu" in base
+    changed = {f for f in base if edited[f] != base[f]}
+    assert changed == {f for f, _, _ in mm_ablations.ABLATIONS[name]}
+
+
+def test_mm_ablations_need_a_card_and_known_names():
+    with pytest.raises(SystemExit, match="unknown ablations"):
+        mm_ablations.main(["no_such"])
+    with pytest.raises(RuntimeError, match="NVIDIA GPU"):
+        mm_ablations.main(["no_b"])

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -65,6 +66,12 @@ def _stale(name: str) -> bool:
     return os.path.getmtime(lib) < max(os.path.getmtime(f) for f in [src, *headers])
 
 
+def nvcc_command(src: str, out: str) -> list:
+    """The command that compiles the kernel source ``src`` into the shared
+    library ``out``."""
+    return [_nvcc(), *NVCC_FLAGS, "-o", out, src]
+
+
 def build_all(names: Iterable[str]) -> Dict[str, str]:
     """Compile every stale library among ``names`` in parallel; returns the
     compiler output (``-Xptxas -v``: registers, spills) of each build."""
@@ -75,9 +82,8 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
             continue
         src, lib, _ = _paths(name)
         tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
         procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            nvcc_command(src, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))
     logs = {}
     for name, (tmp, proc) in procs.items():
@@ -90,6 +96,59 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
         os.replace(tmp, lib)  # atomic: concurrent loaders never see a partial file
         logs[name] = out
     return logs
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PROPS = re.compile(r"Function properties for (\S+)")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+_NOTE = re.compile(r"warning|\(C\d+\)")
+
+
+def build_log(name: str) -> str:
+    """The compiler output of the last build of ``lib<name>.so`` ("" if none)."""
+    path = _paths(name)[2]
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
+
+
+def ptxas_usage(log: str) -> Dict[str, dict]:
+    """Per kernel entry of an ``nvcc -Xptxas -v`` log, by mangled name: its
+    registers, stack frame, spill stores and loads and static shared memory
+    (bytes), and the ptxas warnings and numbered notes printed while it was
+    compiled."""
+    usage: Dict[str, dict] = {}
+    entry = props = None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            entry = props = m.group(1)
+            usage[entry] = {"registers": None, "stack_bytes": 0, "spill_store_bytes": 0,
+                            "spill_load_bytes": 0, "smem_bytes": 0, "notes": []}
+            continue
+        m = _PROPS.search(line)
+        if m:
+            props = m.group(1)
+            continue
+        if entry is None:
+            continue
+        m = _FRAME.search(line)
+        if m:
+            if props == entry:
+                usage[entry].update(zip(("stack_bytes", "spill_store_bytes", "spill_load_bytes"),
+                                        map(int, m.groups())))
+            continue
+        m = _USED.search(line)
+        if m:
+            smem = _SMEM.search(line)
+            usage[entry].update(registers=int(m.group(1)),
+                                smem_bytes=int(smem.group(1)) if smem else 0)
+        elif _NOTE.search(line):
+            usage[entry]["notes"].append(line.strip())
+    return usage
 
 
 def load(name: str) -> ctypes.CDLL:

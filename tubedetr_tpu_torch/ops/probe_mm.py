@@ -1,7 +1,9 @@
 """Probes P1-P3: the plain GEMMs of ``scripts/probe_pallas_int8.py``.
 
-Counterparts of that script's Pallas kernels, on ``csrc/probe_mm.cu``
-(K2's ``mma.sync`` warp tiles, A and B straight from global memory):
+Counterparts of that script's Pallas kernels, on ``csrc/probe_mm.cu``: one
+persistent, warp-specialised kernel an SM that streams A and B by TMA into a
+swizzled shared-memory ring and multiplies with ``wgmma`` (the GEMM method
+of ``csrc/wgmma_tiles.cuh``), in two instantiations:
 
 * ``int8_mm`` (P1, ``pl_dot``): ``(rows, K) s8 @ (K, N) s8 -> s32``, the
   row tiles running over the flat rows;
@@ -11,10 +13,10 @@ Counterparts of that script's Pallas kernels, on ``csrc/probe_mm.cu``
   partial (484 rows a frame at the script's shapes).
 
 The weight comes output channel first, ``wt (N, K)``, as K2's folds carry
-them: the kernel reads a B fragment as one 32-bit load. A CUDA tensor
-launches the kernel and counts it in the wrapper's ``launches``; a CPU
-tensor runs the plain version (``torch._int_mm``, or an f32 product for
-bf16). A CUDA tensor never reaches the plain version.
+them: both operands are then K-major, the one layout s8 ``wgmma`` takes. A
+CUDA tensor launches the kernel and counts it in the wrapper's
+``launches``; a CPU tensor runs the plain version (``torch._int_mm``, or an
+f32 product for bf16). A CUDA tensor never reaches the plain version.
 """
 
 from __future__ import annotations
@@ -26,8 +28,9 @@ import torch
 from tubedetr_tpu_torch.ops import _cuda_build
 from tubedetr_tpu_torch.ops.int8_conv import int_mm
 
-N_GROUP = 64  # a warp task spans 64 output channels
-K_BYTES = 32  # a k-step reads 32 bytes of each row
+N_GROUP = 64  # the kernel takes N in groups of 64 output channels
+K_BYTES = 32  # a wgmma k-step reads 32 bytes of each row
+ALIGN = 16  # TMA reads from 16-byte aligned bases
 
 
 def int8_mm_plain(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
@@ -61,6 +64,17 @@ def _check(x: torch.Tensor, wt: torch.Tensor, dtype: torch.dtype, dims: int) -> 
         )
     if not (x.is_contiguous() and wt.is_contiguous()):
         raise ValueError("x and wt must be contiguous")
+    if x.data_ptr() % ALIGN or wt.data_ptr() % ALIGN:
+        raise ValueError(f"x and wt must start {ALIGN}-byte aligned (TMA): "
+                         f"offsets {x.data_ptr() % ALIGN} and {wt.data_ptr() % ALIGN}")
+
+
+def smem_bytes() -> int:
+    """Dynamic shared memory a block of the kernel requests, from the built
+    library (the ring, its barriers and alignment slack)."""
+    fn = _cuda_build.load("probe_mm").probe_mm_smem_bytes
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
 
 
 def _launch(entry: str, x, wt, out, seg_rows: int) -> None:

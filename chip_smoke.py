@@ -233,17 +233,23 @@ def phase_k2():
     import torch
 
     from tubedetr_tpu_torch.ops.fused_bottleneck import (
-        BAND_ROWS,
-        blocks_per_sm,
         fused_bottleneck_block,
         fused_bottleneck_plain,
-        smem_bytes,
+        kernel_plan,
+        l2_bytes,
+        tile_plan,
     )
     from tubedetr_tpu_torch.probes import cuda_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    usage = k2_usage()
     cases = {}
     for i, (name, (c, p, h, w, d, tails)) in enumerate(K2_STAGES.items()):
+        plan = tile_plan(w, p, d)
+        built = kernel_plan(w, p, d)
+        mine = (plan.tw, plan.stages, plan.tiles, plan.q1_rows, plan.smem_bytes)
+        if built != mine:
+            fail(f"K2 {name}: the kernel's plan {built} is not tile_plan's {mine}")
         xq, fold = k2_block(c, p, h, w, d, K2_CHECK_FRAMES, seed=10 + i)
         out, so = fused_bottleneck_block(xq, fold, d)
         ref = fused_bottleneck_plain(xq, fold, d)
@@ -253,9 +259,13 @@ def phase_k2():
         err = (out.int() - ref.int()).abs().max().item()
         case = {
             "shape": {"N": K2_CHECK_FRAMES, "H": h, "W": w, "C": c, "P": p, "dilation": d},
-            "band_rows": BAND_ROWS,
-            "smem_bytes": smem_bytes(w, p, d),
-            "blocks_per_sm": blocks_per_sm(w, p, d),
+            # a band: 64 * tiles positions of the padded grid, tw = W + 2d wide
+            "band_positions": plan.band,
+            "band_rows": plan.band_rows,
+            "ring_stages": plan.stages,
+            "q1_rows": plan.q1_rows,
+            "smem_bytes": plan.smem_bytes,
+            **usage[p],
             "max_abs_err": err,
             "tolerance": "exact",
             "equal_cpu_plain": bool(torch.equal(ref.cpu(), ref_cpu)),
@@ -286,6 +296,8 @@ def phase_k2():
             case.update({
                 "timed_frames": n,
                 "tails_per_pass": tails,
+                # what the tiling's TMA boxes read, nearly all of it from L2
+                "l2_bytes_per_launch": l2_bytes(plan, n, h, c),
                 "ms": cuda_ms(lambda: fused_bottleneck_block(xq, fold, d), groups=11, per_group=5),
                 "plain_ms": cuda_ms(lambda: fused_bottleneck_plain(xq, fold, d),
                                     groups=5, per_group=2),
@@ -293,6 +305,7 @@ def phase_k2():
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             })
             case["tops"] = ops / case["ms"] / 1e9
+            case["l2_tb_per_s"] = case["l2_bytes_per_launch"] / case["ms"] / 1e9
             del xq
             torch.cuda.empty_cache()
         cases[name] = case
@@ -354,32 +367,65 @@ def probe_entry(name, source, replaces, cases, head, library_ms):
     }
 
 
-def probe_mm_usage():
-    """Registers, spills and shared memory of the two instantiations of
-    P1-P3's kernel (``s8``: P1 and P3, ``bf16``: P2), from the build log of
-    ``libprobe_mm.so`` and the dynamic shared memory the library requests.
-    Fails on a spill or on any ptxas message about ``setmaxnreg`` (it is
-    ignored where the roles do not split in one if/else)."""
-    from tubedetr_tpu_torch.ops import _cuda_build, probe_mm
+def build_usage(lib: str) -> dict:
+    """Registers, spills, stack, static shared memory and ptxas notes of each
+    kernel entry of ``lib<lib>.so``, from its build log. Fails on a spill in
+    any entry or on any ptxas message about ``setmaxnreg`` (it is ignored
+    where the roles do not split in one if/else)."""
+    from tubedetr_tpu_torch.ops import _cuda_build
 
-    log = _cuda_build.build_log("probe_mm")
+    log = _cuda_build.build_log(lib)
     ignored = [line.strip() for line in log.splitlines() if "setmaxnreg" in line]
     if ignored:
-        fail(f"probe_mm: ptxas on setmaxnreg: {ignored}")
+        fail(f"{lib}: ptxas on setmaxnreg: {ignored}")
     usage = _cuda_build.ptxas_usage(log)
+    for name, u in usage.items():
+        if u["spill_store_bytes"] + u["spill_load_bytes"]:
+            fail(f"{lib} kernel {name} spills: {u}")
+    return usage
+
+
+def entry_usage(u: dict, dynamic_smem: int = 0) -> dict:
+    return {"registers": u["registers"],
+            "spill_bytes": u["spill_store_bytes"] + u["spill_load_bytes"],
+            "stack_bytes": u["stack_bytes"], "smem_bytes": u["smem_bytes"] + dynamic_smem,
+            "ptxas_notes": u["notes"]}
+
+
+def k2_usage():
+    """K2's kernel for each P it is built for (the ``kFull`` instantiation,
+    which the probe's ``noshift`` runs too; ``convonly`` has its own), from
+    ``build_usage``: fails unless there are 4 P x 2 entries."""
+    import re
+
+    usage = build_usage("fused_bottleneck")
+    out, seen = {}, []
+    for name, u in usage.items():
+        m = re.search(r"fused_bottleneck_kernelILi(\d+)E.*VariantE(\d)E", name)
+        if m:
+            seen.append(name)
+            if m.group(2) == "0":
+                out[int(m.group(1))] = entry_usage(u)
+    if len(seen) != 8 or sorted(out) != [64, 128, 256, 512]:
+        fail(f"fused_bottleneck: expected 8 kernel entries (4 P x full, convonly) in its build "
+             f"log, found {list(usage)}")
+    return out
+
+
+def probe_mm_usage():
+    """The two instantiations of P1-P3's kernel (``s8``: P1 and P3, ``bf16``:
+    P2), from ``build_usage``, with the dynamic shared memory the library
+    requests."""
+    from tubedetr_tpu_torch.ops import probe_mm
+
+    usage = build_usage("probe_mm")
     dynamic = probe_mm.smem_bytes()
     out = {}
     for kind in ("s8", "bf16"):
         found = [v for name, v in usage.items() if f"probe_mm_{kind}_kernel" in name]
         if len(found) != 1:
             fail(f"probe_mm: {len(found)} entries of the {kind} kernel in its build log")
-        u = found[0]
-        spills = u["spill_store_bytes"] + u["spill_load_bytes"]
-        if spills:
-            fail(f"probe_mm {kind} kernel spills: {u}")
-        out[kind] = {"registers": u["registers"], "spill_bytes": spills,
-                     "stack_bytes": u["stack_bytes"], "smem_bytes": u["smem_bytes"] + dynamic,
-                     "ptxas_notes": u["notes"]}
+        out[kind] = entry_usage(found[0], dynamic)
     return out
 
 

@@ -20,6 +20,9 @@ from tubedetr_tpu_torch.ops.fused_bottleneck import (
     fold_bottleneck,
     fused_bottleneck_block,
     fused_bottleneck_plain,
+    kernel_plan,
+    n_bands,
+    tile_plan,
 )
 from tubedetr_tpu_torch.ops import _cuda_build
 from tubedetr_tpu_torch.ops.probe_bottleneck import (
@@ -110,6 +113,17 @@ K2_CASES = {  # (frames, height, width, planes, dilation)
     "d1": (3, 5, 7, 64, 1),
     "d2": (3, 5, 7, 64, 2),
     "tall-p128": (2, 9, 13, 128, 1),
+    # layer3's width on 40 frames: 144 bands of 256 positions, more than an
+    # H100's 132 SMs, so the persistent blocks take a second band; 22 rows are
+    # 3.4 bands a frame, so bands cross frames and rows
+    "many-bands": (40, 22, 38, 256, 1),
+    # layer4's width: 2 * 14 * 21 = 588 positions in bands of 128, the last
+    # one 76 positions (not a multiple of 64)
+    "ragged-p512": (2, 13, 19, 512, 1),
+    # P=64 with C=256 at layer1's width: bands of 1024, the last 932 positions
+    "p64-wide": (2, 12, 152, 64, 1),
+    # DC5's layer4 (P=512, C=2048, d=2) on a few frames: bands of 64
+    "dc5": (2, 22, 38, 512, 2),
 }
 
 
@@ -157,11 +171,43 @@ def test_k2_kernel_matches_plain(case):
         assert torch.equal(out, bottleneck_variant(xq.cuda(), cfold, "full"))
 
 
+def test_k2_many_bands_case_outnumbers_the_sms():
+    """The ``many-bands`` case gives the persistent kernel more bands than
+    the card has SMs."""
+    require_cuda()
+    n, h, w, planes, d = K2_CASES["many-bands"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert n_bands(tile_plan(w, planes, d), n, h) > sms
+
+
+@pytest.mark.parametrize("p", [64, 128, 256, 512])
+def test_k2_plan_is_the_kernels_plan(p):
+    """The wrapper's tile plan (band, ring, shared memory), which it checks
+    before a launch, is the one the built kernel makes, at the stage widths
+    and small ones, and both refuse the same too-wide band."""
+    require_cuda()
+    for w, d in ((152, 1), (76, 1), (38, 1), (19, 1), (38, 2), (5, 1), (13, 2), (4096, 1)):
+        plan = tile_plan(w, p, d)
+        mine = None if plan is None else (plan.tw, plan.stages, plan.tiles, plan.q1_rows,
+                                          plan.smem_bytes)
+        assert kernel_plan(w, p, d) == mine, (w, p, d)
+    assert kernel_plan(38, 192, 1) is None and tile_plan(38, 192, 1) is None
+
+
 def test_k2_rejects_what_it_cannot_take():
     require_cuda()
     xq, fold = k2_inputs(1, 4, 4, 16)
     with pytest.raises(ValueError, match="multiples of 64"):
         fused_bottleneck_block(xq.cuda(), fold_to(fold, "cuda"))
+    xq, fold = k2_inputs(1, 4, 4, 192)  # a multiple of 64 the kernel is not built for
+    with pytest.raises(ValueError, match="P in"):
+        fused_bottleneck_block(xq.cuda(), fold_to(fold, "cuda"))
+    xq, fold = k2_inputs(1, 4, 8, 64)
+    buf = torch.zeros(xq.numel() + 1, dtype=torch.int8, device="cuda")
+    shifted = buf[1:].view(xq.shape)
+    shifted.copy_(xq)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_bottleneck_block(shifted, fold_to(fold, "cuda"))
     xq, fold = k2_inputs(1, 4, 8, 64)
     with pytest.raises(ValueError, match="contiguous"):
         fused_bottleneck_block(xq.cuda()[:, :, ::2], fold_to(fold, "cuda"))

@@ -23,15 +23,24 @@ from tubedetr_tpu.ops.fused_bottleneck import (
     quantize_weight as jax_quantize_weight,
 )
 from tubedetr_tpu_torch.ops.fused_bottleneck import (
-    BAND_ROWS,
+    MAX_STAGES,
+    MAX_TILES,
     SMEM_LIMIT,
+    TilePlan,
+    _requant,
+    band_span,
+    compact_to_grid,
     fold_bottleneck,
     fused_bottleneck_block,
     fused_bottleneck_plain,
+    grid_to_compact,
+    l2_bytes,
+    n_bands,
     quantize_weight,
-    smem_bytes,
+    tile_plan,
 )
-from tubedetr_tpu_torch.ops.int8_conv import conv2d_int8
+from tubedetr_tpu_torch.ops.int8_conv import conv2d_int8, int_mm
+from tubedetr_tpu_torch.ops.probe_bottleneck import bottleneck_variant_plain
 
 AM2, AM3, OUT_MAX = 11.0, 9.0, 14.0
 
@@ -146,19 +155,121 @@ def test_wrapper_checks_its_input():
     )
 
 
-@pytest.mark.parametrize(
-    "h,w,c,d",
-    [(88, 152, 256, 1), (44, 76, 512, 1), (22, 38, 1024, 1), (11, 19, 2048, 1), (22, 38, 2048, 2)],
-    ids=["layer1", "layer2", "layer3", "layer4", "layer4-dc5"],
-)
-def test_band_rows_fit_shared_memory(h, w, c, d):
-    """ResNet-101 at 352x608 (and DC5's layer4): two output rows a block,
-    within the 227 KB a block may opt into; the wrapper refuses a width
-    whose band does not fit."""
-    assert BAND_ROWS == 2
-    assert smem_bytes(w, c // 4, d) <= SMEM_LIMIT
-    assert smem_bytes(w, c // 4, d) == ((2 + 2 * d) * (w + 2 * d) + 2 * w) * (c // 4 + 16)
-    assert smem_bytes(8 * w, c // 4, d) > SMEM_LIMIT
+STAGE_PLANS = {  # (H, W, C, dilation) -> (ring stages, 64-position tiles a band)
+    "layer1": ((88, 152, 256, 1), (3, 16)),
+    "layer2": ((44, 76, 512, 1), (3, 11)),
+    "layer3": ((22, 38, 1024, 1), (3, 4)),
+    "layer4": ((11, 19, 2048, 1), (2, 2)),
+    "layer4-dc5": ((22, 38, 2048, 2), (2, 1)),
+}
+
+
+@pytest.mark.parametrize("stage", list(STAGE_PLANS))
+def test_band_rows_fit_shared_memory(stage):
+    """ResNet-101 at 352x608 (and DC5's layer4): K2's plan fills the 227 KB
+    a block may opt into with the ring, the q1 tile (the band and a halo of
+    ``d*tw + d`` positions each side) and a 64 x P q2 tile per busy consumer
+    warpgroup; no further tile fits at its ring depth, a deeper ring (at most
+    3 stages) would leave fewer than 4, and the wrapper refuses a width whose
+    q1 tile does not fit."""
+    (h, w, c, d), (stages, tiles) = STAGE_PLANS[stage]
+    p = c // 4
+    plan = tile_plan(w, p, d)
+    assert (plan.stages, plan.tiles) == (stages, tiles)
+    assert plan.tw == w + 2 * d and plan.band == 64 * tiles
+    assert plan.q1_rows % 8 == 0 and plan.q1_rows >= plan.band + 2 * plan.centre
+    assert plan.smem_bytes == (1024 + stages * 32768 + 128 + plan.q1_rows * p
+                               + 64 * min(tiles, 2) * p)
+    assert plan.smem_bytes <= SMEM_LIMIT
+    assert tiles == MAX_TILES or TilePlan(w, p, d, stages, tiles + 1).smem_bytes > SMEM_LIMIT
+    assert stages == MAX_STAGES or TilePlan(w, p, d, stages + 1, 4).smem_bytes > SMEM_LIMIT
+    assert tile_plan(64 * w, p, d) is None
+    # every launch at N=400 reads its weights more than once from L2, and x
+    # at least once
+    assert l2_bytes(plan, 400, h, c) > 400 * h * w * c + 2 * c * p + 9 * p * p
+
+
+def tiled_block(xq, fold, dilation, plan, variant="full"):
+    """The block rebuilt in plain PyTorch from K2's tile plan, band by band:
+    conv1 over the compact rows ``band_span`` gives, the fold scattered into
+    a zeroed q1 tile at the grid positions, conv2 as nine products of that
+    tile shifted by ``tap_offsets`` over whole 64-position tiles (``noshift``:
+    nine reads of the centre; ``convonly``: q2 = q1), conv3 and the residual
+    at the band's real positions. Every pixel is written once."""
+    n, h, w, c = xq.shape
+    rows = xq.reshape(-1, c)
+    out = torch.zeros_like(rows)
+    written = torch.zeros(rows.shape[0], dtype=torch.int32)
+    offsets = plan.tap_offsets() if variant == "full" else (0,) * 9
+    for b in range(n_bands(plan, n, h)):
+        m0, bm, q_lo, p_lo, p_hi = band_span(plan, n, h, b, variant)
+        tile = torch.zeros(plan.q1_rows, plan.p, dtype=torch.int8)
+        ti = compact_to_grid(torch.arange(p_lo, p_hi), h, plan) - q_lo
+        assert p_hi == p_lo or (int(ti.min()) >= 0 and int(ti.max()) < plan.q1_rows)
+        tile[ti] = _requant(int_mm(rows[p_lo:p_hi], fold.w1.t()).float() * fold.a1 + fold.b1)
+        span = -(-bm // 64) * 64  # whole tiles, as the kernel computes them
+        assert span + max(offsets) <= plan.q1_rows
+        if variant == "convonly":
+            q2 = tile[:span]
+        else:
+            acc2 = sum(int_mm(tile[o:o + span].contiguous(), fold.w2[t].t())
+                       for t, o in enumerate(offsets))
+            q2 = _requant(acc2.float() * fold.a2 + fold.b2)
+        px = grid_to_compact(torch.arange(m0, m0 + bm), h, plan)
+        keep = px >= 0
+        px = px[keep]
+        y3 = (int_mm(q2[:bm][keep].contiguous(), fold.w3.t()).float() * fold.a3 + fold.b3
+              + rows[px].float() * fold.sid)
+        out[px] = _requant(y3)
+        written[px] += 1
+    assert bool((written == 1).all())
+    return out.reshape(n, h, w, c)
+
+
+TILED_CASES = {  # (frames, height, width, dilation, tiles a band)
+    # 108 grid positions: bands of 64 and 44, the first ending mid-frame
+    "d1": (2, 5, 7, 1, 1),
+    # 154 positions in bands of 64, 64, 26: halos of 2*11 + 2 each side
+    "d2": (2, 5, 7, 2, 1),
+    # 3 frames of 6x6 (8 wide padded): one band of 128 spanning all but 40
+    "d1-two-tiles": (3, 6, 6, 1, 2),
+    # dilation 2 on 3 frames of 4x9: 3*6*13 = 234 positions, bands of 64, the last 42
+    "d2-many-frames": (3, 4, 9, 2, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(TILED_CASES))
+def test_tile_plan_reassembles_the_block(case):
+    """K2's band, padded-width and tap arithmetic, run in plain PyTorch from
+    the plan (``tiled_block``), equals the plain version, the JAX Pallas
+    kernel in interpret mode and the JAX reference, bit for bit."""
+    n, h, w, d, tiles = TILED_CASES[case]
+    xq, sx, kernels, norms = block_inputs(np.random.RandomState(7), n, h, w, planes=16)
+    fold = port_fold(sx, kernels, norms)
+    plan = TilePlan(w, 16, d, 2, tiles)
+    got = tiled_block(torch.from_numpy(xq), fold, d, plan)
+    jargs = (
+        jnp.asarray(xq), jnp.float32(sx),
+        {k: jnp.asarray(v) for k, v in kernels.items()},
+        {k: (jnp.asarray(a), jnp.asarray(b)) for k, (a, b) in norms.items()},
+        jnp.float32(AM2), jnp.float32(AM3), jnp.float32(OUT_MAX),
+    )
+    want_k, _ = jax_fused_block(*jargs, dilation=d, interpret=True)
+    want_r, _ = fused_bottleneck_reference(*jargs, dilation=d)
+    np.testing.assert_array_equal(got.numpy(), fused_bottleneck_plain(torch.from_numpy(xq), fold, d).numpy())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_k))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_r))
+
+
+@pytest.mark.parametrize("variant", ["noshift", "convonly"])
+def test_tile_plan_reassembles_the_probe_variants(variant):
+    """P4's variants of K2 on the same plan (conv1 over the band alone, the
+    tile starting at the centre) equal their plain versions."""
+    xq, sx, kernels, norms = block_inputs(np.random.RandomState(8), 3, 5, 7, planes=16)
+    fold = port_fold(sx, kernels, norms)
+    got = tiled_block(torch.from_numpy(xq), fold, 1, TilePlan(7, 16, 1, 2, 1), variant)
+    want = bottleneck_variant_plain(torch.from_numpy(xq), fold, variant)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 CONV_CASES = {  # (k, stride, dilation, in channels, out channels)

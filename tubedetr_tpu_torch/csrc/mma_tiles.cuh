@@ -1,7 +1,6 @@
-// Warp-level tensor-core tiles shared by K2 (fused_bottleneck.cu, and its
-// variants P4) and the flat bottleneck probe P5 (probe_flat_bottleneck.cu).
-// The probe GEMMs P1-P3 moved to TMA and wgmma (wgmma_tiles.cuh), which K2's
-// redesign takes next.
+// Warp-level tensor-core tiles of the flat bottleneck probe P5
+// (probe_flat_bottleneck.cu). K2 (with its variants P4) and the probe GEMMs
+// P1-P3 run on TMA and wgmma instead (wgmma_tiles.cuh).
 //
 // One warp task is a (16 * kMT) x (8 * kNT) = 32 x 64 tile of A(M x K) *
 // B(K x N) on mma.sync: m16n8k32 with s8 inputs and s32 sums, or m16n8k16

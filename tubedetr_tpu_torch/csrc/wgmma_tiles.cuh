@@ -1,9 +1,8 @@
 // Hopper (sm_90a) building blocks for GEMMs fed by TMA through a shared-memory
 // ring: tensor maps and TMA loads (2-D and 3-D), mbarrier helpers, wgmma
-// shared-memory descriptors, the s8 and bf16 m64n256 instructions,
-// fence/commit/wait and setmaxnreg. The probe GEMMs P1-P3 (probe_mm.cu) run
-// on it; K2's redesign (fused_bottleneck.cu) takes it next for conv1 and
-// conv3.
+// shared-memory descriptors, the s8 m64n{64,128,256} and bf16 m64n256
+// instructions, fence/commit/wait and setmaxnreg. The probe GEMMs P1-P3 (probe_mm.cu) and
+// K2 (fused_bottleneck.cu) run on it.
 //
 // One layout throughout: both operands K-major (each row contiguous along the
 // reduction, as A and the output-channel-first weights of the port are), cut
@@ -91,16 +90,18 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
                : "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+// the arrival on a barrier given by its shared-memory address
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
 }
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) { mbar_arrive(smem_u32(bar)); }
 
 // Spin until the phase of parity `parity` has completed. A wait that never
 // ends (a byte count that the loads do not reach, a parity off by one) traps
 // after 2^26 tries, far beyond any real wait, so the launch fails instead of
 // hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
+__device__ __forceinline__ void mbar_wait(uint32_t addr, uint32_t parity) {
   uint32_t done;
   for (uint32_t tries = 0;; ++tries) {
     asm volatile(
@@ -115,6 +116,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (done) return;
     if (tries == (1u << 26)) __trap();
   }
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  mbar_wait(smem_u32(bar), parity);
 }
 
 // ---- TMA: one thread copies a box of global memory into shared memory and
@@ -148,9 +153,13 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
 // Descriptor of a K-major, 128-byte-swizzled tile at `tile` (1024-byte
 // aligned): start address >> 4, leading offset 1 (unused for swizzled
 // K-major), stride 1024 bytes between 8-row groups, layout B128.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t tile) {
+  return (uint64_t)((tile & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
 __device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* tile) {
-  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | (1ull << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+  return wgmma_desc_sw128(smem_u32(tile));
 }
 
 // the descriptor of k-step `k` (32 bytes each) inside a tile
@@ -218,6 +227,47 @@ __device__ __forceinline__ void wgmma_m64n256(int32_t (&d)[128], uint64_t a, uin
       "}\n"
       : WGMMA_OP128(WGMMA_S32, d)
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+#define WGMMA_D32                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WGMMA_D64                                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "         \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "          \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// The s8 k-step at the widths K2 uses, chosen by the accumulator's size:
+// D(64 x N) (+)= A(64 x 32 bytes) * B(N x 32 bytes)^T for N = 64, 128, 256
+// (32, 64, 128 registers a thread, laid out as for wgmma_m64n256).
+__device__ __forceinline__ void wgmma_s8(int32_t (&d)[32], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " WGMMA_D32 ", %32, %33, p;\n"
+      "}\n"
+      : WGMMA_OP32(WGMMA_S32, d, 0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_s8(int32_t (&d)[64], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " WGMMA_D64 ", %64, %65, p;\n"
+      "}\n"
+      : WGMMA_OP32(WGMMA_S32, d, 0), WGMMA_OP32(WGMMA_S32, d, 32)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_s8(int32_t (&d)[128], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  wgmma_m64n256(d, a, b, accumulate);
 }
 
 __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t a, uint64_t b,

@@ -16,6 +16,15 @@ operation order. ``fused_bottleneck_block`` launches the CUDA kernel of
 in ``fused_bottleneck_block.launches``; for a tensor on the CPU it runs
 ``fused_bottleneck_plain`` (three ``torch._int_mm`` products, the 3x3 as an
 int8 im2col). A CUDA tensor never reaches the plain version.
+
+The kernel's tiling (``tile_plan``, ``band_span``, ``tap_offsets``): the 3x3
+runs on a zero-padded grid, each frame row ``tw = W + 2d`` wide and ``d``
+zero rows between frames (and above the first), so a tap is a constant offset
+``ky*d*tw + kx*d``. Bands are runs of ``64 * tiles`` grid positions across
+the whole batch; conv1 runs over the compact rows of ``xq`` whose ``q1`` a
+band needs. The kernel computes the same plan (``fused_bottleneck_plan``);
+``tests/test_torch_fused_bottleneck.py`` rebuilds the block from this plan
+in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -28,10 +37,14 @@ import torch
 from tubedetr_tpu_torch.ops import _cuda_build
 from tubedetr_tpu_torch.ops.int8_conv import im2col, int_mm
 
-CHANNEL_GROUP = 64  # the kernel's warp tile spans 64 output channels
+KERNEL_PLANES = (64, 128, 256, 512)  # mid channels P the kernel is built for
+CHANNEL_BYTES = 128  # C is a multiple of one 128-byte TMA slice of K
 SMEM_LIMIT = 227 * 1024  # opt-in shared memory of one block on sm_90
-SMEM_PAD = 16  # bytes added to each pixel's channel row in shared memory
-BAND_ROWS = 2  # output rows per CUDA block (kR in the kernel)
+TILE = 64  # grid positions of one wgmma tile
+RING_SLOT = 256 * 128  # one ring stage: 256 rows x 128 bytes of K
+NC1_MAX = 128  # conv1's output channels a pass (beside 128 rows of x in a stage)
+MAX_STAGES, MIN_STAGES, MAX_TILES = 3, 2, 16
+SMEM_ALIGN, SMEM_BARRIERS = 1024, 128
 
 
 def quantize_weight(kernel: torch.Tensor):
@@ -121,25 +134,170 @@ def fused_bottleneck_plain(xq: torch.Tensor, fold: BottleneckFold, dilation: int
     return _requant(y3).reshape(n, h, w, c)
 
 
-def smem_bytes(w: int, p: int, dilation: int) -> int:
-    """Shared memory of one K2 block: the zero-bordered ``q1`` tile of
-    ``BAND_ROWS + 2d`` rows and the ``q2`` tile of ``BAND_ROWS`` rows. Two
-    rows a block: conv1 recomputes a halo of ``dilation`` rows on each side,
-    so at d=1 it does 2x the band's conv1 work (3x with one row a block)."""
-    r, ps = BAND_ROWS, p + SMEM_PAD
-    return ((r + 2 * dilation) * (w + 2 * dilation) + r * w) * ps
+@dataclass(frozen=True)
+class TilePlan:
+    """How K2 tiles a width ``w`` with ``p`` mid channels at ``dilation``."""
+
+    w: int
+    p: int
+    dilation: int
+    stages: int  # ring stages of RING_SLOT bytes
+    tiles: int  # 64-position wgmma tiles a band
+
+    @property
+    def tw(self) -> int:
+        """Padded width: ``d`` zero columns each side."""
+        return self.w + 2 * self.dilation
+
+    @property
+    def band(self) -> int:
+        """Grid positions a band."""
+        return TILE * self.tiles
+
+    @property
+    def centre(self) -> int:
+        """Offset of the centre tap, ``d*tw + d``."""
+        return self.dilation * self.tw + self.dilation
+
+    @property
+    def q1_rows(self) -> int:
+        """Positions of the q1 tile: the band and a halo of ``centre`` each side."""
+        return _q1_rows(self.tiles, self.tw, self.dilation)
+
+    @property
+    def smem_bytes(self) -> int:
+        return _smem(self.p, self.stages, self.tiles, self.q1_rows)
+
+    @property
+    def band_rows(self) -> float:
+        """Image rows a band spans (its positions over the padded width)."""
+        return self.band / self.tw
+
+    def tap_offsets(self):
+        """q1 grid offset of each tap (``ky*3 + kx``) from the output position."""
+        d, tw = self.dilation, self.tw
+        return tuple(ky * d * tw + kx * d for ky in range(3) for kx in range(3))
 
 
-def blocks_per_sm(w: int, p: int, dilation: int) -> int:
-    """K2 blocks resident on one SM of the current card for a band of width
-    ``w`` with ``p`` mid channels, as the CUDA occupancy calculator gives it
-    (registers, shared memory and threads of the built kernel)."""
-    fn = _cuda_build.load("fused_bottleneck").fused_bottleneck_blocks_per_sm
-    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
-    blocks = fn(w, p, dilation)
-    if blocks < 0:
-        raise RuntimeError("the CUDA occupancy query for K2 failed")
-    return blocks
+def _q1_rows(tiles: int, tw: int, d: int) -> int:
+    return (TILE * tiles + 2 * d * tw + 2 * d + 7) // 8 * 8
+
+
+def _smem(p: int, stages: int, tiles: int, q1_rows: int) -> int:
+    """Alignment slack, the ring, its barriers, the q1 tile, one 64 x P q2
+    tile per busy consumer warpgroup."""
+    return SMEM_ALIGN + stages * RING_SLOT + SMEM_BARRIERS + q1_rows * p + TILE * min(tiles, 2) * p
+
+
+def _tiles_fitting(w: int, p: int, d: int, stages: int) -> int:
+    tw = w + 2 * d
+    fits = [t for t in range(1, MAX_TILES + 1) if _smem(p, stages, t, _q1_rows(t, tw, d)) <= SMEM_LIMIT]
+    return max(fits, default=0)
+
+
+def tile_plan(w: int, p: int, dilation: int):
+    """K2's plan for a width, mid channels and dilation, as the kernel makes
+    it (``make_plan`` in ``csrc/fused_bottleneck.cu``): 3 ring stages if that
+    leaves a band of at least 4 tiles, else 2 stages and the most tiles that
+    fit. None for a shape the kernel does not take."""
+    if p not in KERNEL_PLANES or w < 1 or dilation < 1 or w > 1 << 20 or dilation > 1 << 20:
+        return None
+    for stages in range(MAX_STAGES, MIN_STAGES, -1):
+        tiles = _tiles_fitting(w, p, dilation, stages)
+        if tiles >= 4:
+            return TilePlan(w, p, dilation, stages, tiles)
+    tiles = _tiles_fitting(w, p, dilation, MIN_STAGES)
+    return TilePlan(w, p, dilation, MIN_STAGES, tiles) if tiles else None
+
+
+def grid_positions(n: int, h: int, plan: TilePlan) -> int:
+    """Positions of the output grid: ``n`` frames of ``h + d`` rows of ``tw``."""
+    return n * (h + plan.dilation) * plan.tw
+
+
+def real_before(q: int, n: int, h: int, plan: TilePlan) -> int:
+    """Real (in-frame) positions of the q1 grid before grid index ``q``: the
+    compact row of ``xq`` at or after ``q``. The q1 grid has ``d`` zero rows
+    on top, then per frame ``h`` rows and ``d`` separator rows, each ``tw``
+    wide with the pixels at columns ``[d, d + w)``."""
+    d, w, hd = plan.dilation, plan.w, h + plan.dilation
+    u, col = q // plan.tw - d, q % plan.tw
+    if u < 0:
+        return 0
+    f, hh = u // hd, u % hd
+    if f >= n:
+        return n * h * w
+    before = (f * h + min(hh, h)) * w
+    return before + min(max(col - d, 0), w) if hh < h else before
+
+
+def compact_to_grid(px, h: int, plan: TilePlan):
+    """q1 grid index of compact pixel ``px`` (row of ``xq`` as ``(N*H*W, C)``)."""
+    d, w = plan.dilation, plan.w
+    f, rem = px // (h * w), px % (h * w)
+    return (f * (h + d) + d + rem // w) * plan.tw + d + rem % w
+
+
+def grid_to_compact(o, h: int, plan: TilePlan):
+    """Compact pixel of output grid position ``o``, or -1 on a padding column
+    or separator row."""
+    d, w, hd = plan.dilation, plan.w, h + plan.dilation
+    r, ww = o // plan.tw, o % plan.tw
+    f, hh = r // hd, r % hd
+    px = (f * h + hh) * w + ww
+    if torch.is_tensor(o):
+        return torch.where((ww < w) & (hh < h), px, torch.full_like(px, -1))
+    return px if ww < w and hh < h else -1
+
+
+def band_span(plan: TilePlan, n: int, h: int, b: int, variant: str = "full"):
+    """Band ``b``: ``(m0, bm, q_lo, p_lo, p_hi)``: its first output grid
+    position, its positions, the q1 grid index of its q1 tile's first
+    position, and the compact rows ``[p_lo, p_hi)`` conv1 runs over (the
+    band and its halo of ``centre`` each side; ``noshift`` and ``convonly``:
+    the band alone, the tile starting at the centre)."""
+    m0 = b * plan.band
+    bm = min(plan.band, grid_positions(n, h, plan) - m0)
+    full = variant == "full"
+    q_lo = m0 if full else m0 + plan.centre
+    ext = bm + 2 * plan.centre if full else bm
+    return m0, bm, q_lo, real_before(q_lo, n, h, plan), real_before(q_lo + ext, n, h, plan)
+
+
+def n_bands(plan: TilePlan, n: int, h: int) -> int:
+    return -(-grid_positions(n, h, plan) // plan.band)
+
+
+def l2_bytes(plan: TilePlan, n: int, h: int, c: int, variant: str = "full") -> int:
+    """Bytes the kernel's TMA loads read in one launch, from the tiling: the
+    in-bounds part of every box (zero fill costs no read). Every pair of
+    64-position tiles streams w2 and w3 once; every pair of conv1 tiles
+    streams w1 once and its 128 rows of x once a pass of ``NC1_MAX`` output
+    channels. Nearly all of it comes from L2: the weights stay there, and
+    only the first read of each row of x comes from device memory."""
+    p = plan.p
+    rows = n * h * plan.w
+    x_passes = p // min(p, NC1_MAX)
+    per_pair2 = c * p + (0 if variant == "convonly" else 9 * p * p)
+    total = 0
+    for b in range(n_bands(plan, n, h)):
+        _, bm, _, p_lo, p_hi = band_span(plan, n, h, b, variant)
+        for row0 in range(p_lo, p_hi, 2 * TILE):
+            total += p * c + x_passes * c * min(2 * TILE, rows - row0)
+        total += -(-bm // (2 * TILE)) * per_pair2
+    return total
+
+
+def kernel_plan(w: int, p: int, dilation: int):
+    """The plan the built kernel makes (``fused_bottleneck_plan``), as
+    ``(tw, stages, tiles, q1_rows, smem_bytes)``, or None: what a card test
+    holds ``tile_plan`` to."""
+    fn = _cuda_build.load("fused_bottleneck").fused_bottleneck_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    smem = fn(w, p, dilation, out)
+    return None if smem < 0 else (*out, smem)
 
 
 def launch_fold_kernel(lib: str, entry: str, xq, out, fold: BottleneckFold, dims) -> None:
@@ -174,10 +332,8 @@ def launch_k2(xq, out, fold: BottleneckFold, dilation: int, entry: str = "fused_
 def check_fold(fold: BottleneckFold, device: torch.device) -> None:
     """Raise on a fold that the CUDA kernels do not take on ``device``."""
     c, p = fold.channels
-    if c % CHANNEL_GROUP or p % CHANNEL_GROUP:
-        raise ValueError(
-            f"K2 takes channel counts that are multiples of {CHANNEL_GROUP}; got C={c}, P={p}"
-        )
+    if c % 64 or p % 64:
+        raise ValueError(f"the kernels take channel counts that are multiples of 64; got C={c}, P={p}")
     for name in ("w1", "w2", "w3", "a1", "b1", "a2", "b2", "a3", "b3", "sid"):
         t = getattr(fold, name)
         if t.device != device or not t.is_contiguous():
@@ -207,16 +363,24 @@ def check_input(xq: torch.Tensor, fold: BottleneckFold, dilation: int) -> None:
         raise ValueError(f"dilation must be >= 1, got {dilation}")
     if xq.device.type == "cpu":
         return
-    _, p = fold.channels
-    n, _, w, _ = xq.shape
-    if n > 65535:
-        raise ValueError("at most 65535 frames per launch")
-    if smem_bytes(w, p, dilation) > SMEM_LIMIT:
+    c, p = fold.channels
+    n, h, w, _ = xq.shape
+    if p not in KERNEL_PLANES or c % CHANNEL_BYTES:
         raise ValueError(
-            f"K2's band of {BAND_ROWS} rows of width {w} with {p} channels at dilation "
-            f"{dilation} needs {smem_bytes(w, p, dilation)} bytes of shared memory, "
-            f"more than {SMEM_LIMIT}"
+            f"K2 takes channel counts that are multiples of 64 with P in {KERNEL_PLANES} and "
+            f"C a multiple of {CHANNEL_BYTES}; got C={c}, P={p}"
         )
+    plan = tile_plan(w, p, dilation)
+    if plan is None:
+        raise ValueError(
+            f"K2's q1 tile for width {w} with {p} channels at dilation {dilation} does not fit "
+            f"{SMEM_LIMIT} bytes of shared memory beside its ring"
+        )
+    if grid_positions(n, h, plan) + 2 * plan.band + 2 * plan.centre >= 2**31:
+        raise ValueError(f"{n} frames of {h}x{w} exceed the kernel's 32-bit grid positions")
+    for name, t in (("xq", xq), ("fold.w1", fold.w1), ("fold.w2", fold.w2), ("fold.w3", fold.w3)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned (TMA)")
 
 
 def fused_bottleneck_block(xq: torch.Tensor, fold: BottleneckFold, dilation: int = 1):

@@ -24,7 +24,6 @@ import torch
 
 from tubedetr_tpu_torch.ops.fused_bottleneck import (
     SMEM_LIMIT,
-    SMEM_PAD,
     BottleneckFold,
     _requant,
     check_input,
@@ -45,6 +44,7 @@ _ENTRY = {
 # rows_per_block<V>() of csrc/probe_flat_bottleneck.cu; a card test holds
 # flat_smem_bytes to the library's own count
 FLAT_ROWS_PER_BLOCK = {"hwpad": 128, "im2col": 64}
+SMEM_PAD = 16  # bytes added to each row of P5's shared-memory tiles
 
 
 def probe_fold(w1, w2, w3, a=(1e-4, 1e-4, 1e-4), b=(0.0, 0.0, 0.0), sid=0.01) -> BottleneckFold:

@@ -9,16 +9,16 @@ P = 256; a = 1e-4, b = 0, residual ``x * 0.01``):
 * ``full``, ``noshift``, ``convonly`` (P4): K2's own kernel, whole, without
   the halo and shifted taps, and without the 3x3 (``ops/probe_bottleneck.py``);
 * ``dot2d``: on the TPU the 3D dot split into per-frame 2D dots, a question
-  of Mosaic's lowering; K2's blocks are already bands of one frame, so it
-  runs ``full``'s kernel;
+  of Mosaic's lowering; K2 runs on bands of its padded grid whatever the
+  frames are, so it runs ``full``'s kernel;
 * ``hwpad``, ``im2col`` (P5): the same function on frames padded to 512
   rows, nine shifted products or one K=9P product.
 
-F (frames a TPU grid step) has no counterpart on the card: a block is a band
-of one frame (P4) or a run of flat rows (P5) whatever F is. It is accepted
-and printed. One line per spec: ms and TOP/s over the script's operation
-count (the whole block's, for every variant, on the 484 real rows); a spec
-whose kernel already ran in this call names that spec as
+F (frames a TPU grid step) has no counterpart on the card: a block walks
+bands of grid positions (P4) or runs of flat rows (P5) whatever F is. It is
+accepted and printed. One line per spec: ms and TOP/s over the script's
+operation count (the whole block's, for every variant, on the 484 real
+rows); a spec whose kernel already ran in this call names that spec as
 ``same_kernel_as``.
 """
 

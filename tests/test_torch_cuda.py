@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from tubedetr_tpu_torch.ops.fused_bottleneck import (
+    column_strips,
     fold_bottleneck,
     fused_bottleneck_block,
     fused_bottleneck_plain,
@@ -124,7 +125,14 @@ K2_CASES = {  # (frames, height, width, planes, dilation)
     "p64-wide": (2, 12, 152, 64, 1),
     # DC5's layer4 (P=512, C=2048, d=2) on a few frames: bands of 64
     "dc5": (2, 22, 38, 512, 2),
+    # DC5's layer4 at res 416 and 480: widths whose q1 tile does not fit, run
+    # in two column strips
+    "dc5-w44": (2, 9, 44, 512, 2),
+    "dc5-w50": (2, 7, 50, 512, 2),
+    # P=64 on a very wide frame: four strips of about 1024 columns
+    "p64-strips": (1, 3, 4096, 64, 1),
 }
+K2_STRIPS = {"dc5-w44": 2, "dc5-w50": 2, "p64-strips": 4}  # column strips, where not 1
 
 
 def k2_inputs(n, h, w, planes, seed=0):
@@ -154,8 +162,9 @@ def fold_to(fold, device):
 def test_k2_kernel_matches_plain(case):
     """K2 (the ``Full`` instantiation of the kernel template) on the card
     equals its plain version bit for bit, on the card (cuBLASLt products)
-    and on the CPU, given the same fold; one launch. The probe's ``full``
-    runs the same kernel and gives the same output."""
+    and on the CPU, given the same fold; one launch a column strip (one,
+    but for a width whose q1 tile does not fit). The probe's ``full`` runs
+    the same kernel and gives the same output."""
     require_cuda()
     n, h, w, planes, d = K2_CASES[case]
     xq, fold = k2_inputs(n, h, w, planes)
@@ -163,7 +172,9 @@ def test_k2_kernel_matches_plain(case):
     before = fused_bottleneck_block.launches
     out, so = fused_bottleneck_block(xq.cuda(), cfold, d)
     torch.cuda.synchronize()
-    assert fused_bottleneck_block.launches == before + 1
+    strips = len(column_strips(w, planes, d))
+    assert strips == K2_STRIPS.get(case, 1)
+    assert fused_bottleneck_block.launches == before + strips
     assert out.dtype == torch.int8 and out.shape == xq.shape and float(so) == float(fold.so)
     assert torch.equal(out.cpu(), fused_bottleneck_plain(xq.cuda(), cfold, d).cpu())
     assert torch.equal(out.cpu(), fused_bottleneck_plain(xq, fold, d))
@@ -211,9 +222,9 @@ def test_k2_rejects_what_it_cannot_take():
     xq, fold = k2_inputs(1, 4, 8, 64)
     with pytest.raises(ValueError, match="contiguous"):
         fused_bottleneck_block(xq.cuda()[:, :, ::2], fold_to(fold, "cuda"))
-    xq, fold = k2_inputs(1, 2, 4096, 64)
+    xq, fold = k2_inputs(1, 2, 40, 512)  # at dilation 6 not one column's q1 tile fits
     with pytest.raises(ValueError, match="shared memory"):
-        fused_bottleneck_block(xq.cuda(), fold_to(fold, "cuda"))
+        fused_bottleneck_block(xq.cuda(), fold_to(fold, "cuda"), 6)
 
 
 def test_int8_pipeline_on_the_card_matches_the_cpu(tmp_path):

@@ -29,15 +29,17 @@ from tubedetr_tpu_torch.ops.fused_bottleneck import (
     TilePlan,
     _requant,
     band_span,
+    column_strips,
     compact_to_grid,
     fold_bottleneck,
     fused_bottleneck_block,
     fused_bottleneck_plain,
     grid_to_compact,
-    l2_bytes,
+    in_strips,
     n_bands,
     quantize_weight,
     tile_plan,
+    tma_box_bytes,
 )
 from tubedetr_tpu_torch.ops.int8_conv import conv2d_int8, int_mm
 from tubedetr_tpu_torch.ops.probe_bottleneck import bottleneck_variant_plain
@@ -184,9 +186,9 @@ def test_band_rows_fit_shared_memory(stage):
     assert tiles == MAX_TILES or TilePlan(w, p, d, stages, tiles + 1).smem_bytes > SMEM_LIMIT
     assert stages == MAX_STAGES or TilePlan(w, p, d, stages + 1, 4).smem_bytes > SMEM_LIMIT
     assert tile_plan(64 * w, p, d) is None
-    # every launch at N=400 reads its weights more than once from L2, and x
-    # at least once
-    assert l2_bytes(plan, 400, h, c) > 400 * h * w * c + 2 * c * p + 9 * p * p
+    # the model of a launch's TMA boxes at N=400: the weights more than once,
+    # x at least once
+    assert tma_box_bytes(plan, 400, h, c) > 400 * h * w * c + 2 * c * p + 9 * p * p
 
 
 def tiled_block(xq, fold, dilation, plan, variant="full"):
@@ -270,6 +272,65 @@ def test_tile_plan_reassembles_the_probe_variants(variant):
     got = tiled_block(torch.from_numpy(xq), fold, 1, TilePlan(7, 16, 1, 2, 1), variant)
     want = bottleneck_variant_plain(torch.from_numpy(xq), fold, variant)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+STRIP_CASES = {  # (width, P, dilation) -> column strips
+    "layer4": ((19, 512, 1), 1),
+    "dc5": ((38, 512, 2), 1),
+    # DC5's layer4 at res 416 and 480 (long side 693 and 800): its q1 tile
+    # does not fit beside the ring above a width of 43
+    "dc5-res416": ((44, 512, 2), 2),
+    "dc5-res480": ((50, 512, 2), 2),
+    "p512-d1-wide": ((120, 512, 1), 2),
+    "p64-very-wide": ((4096, 64, 1), 4),
+}
+
+
+@pytest.mark.parametrize("case", list(STRIP_CASES))
+def test_column_strips_cover_the_width(case):
+    """The strips' kept columns tile the width in order; each strip's input
+    is its kept columns and ``d`` more on each side inside the frame; every
+    input fits K2's shared memory and one strip fewer would not."""
+    (w, p, d), count = STRIP_CASES[case]
+    strips = column_strips(w, p, d)
+    assert len(strips) == count
+    assert [c0 for _, _, c0, _ in strips] == [0] + [c1 for _, _, _, c1 in strips[:-1]]
+    assert strips[-1][3] == w
+    for s0, s1, c0, c1 in strips:
+        assert (s0, s1) == (max(c0 - d, 0), min(c1 + d, w)) and c0 < c1
+        assert tile_plan(s1 - s0, p, d) is not None
+    if count > 1:
+        step = -(-w // (count - 1))  # the widest input of count - 1 strips is at least this wide
+        assert tile_plan(min(step + d, w), p, d) is None
+    assert column_strips(w, p, 6 if p == 512 else 200) is None  # not one column fits
+
+
+@pytest.mark.parametrize("case", ["dc5-res416", "dc5-res480", "p512-d1-wide"])
+def test_column_strips_reassemble_the_block(case):
+    """The block run strip by strip (``in_strips``, at the strips K2 takes
+    for that width; the channels cut to P=16) equals the block on the whole
+    width, the plain version and the JAX reference, bit for bit."""
+    (w, p, d), _ = STRIP_CASES[case]
+    xq, sx, kernels, norms = block_inputs(np.random.RandomState(9), 2, 5, w, planes=16)
+    fold = port_fold(sx, kernels, norms)
+    x = torch.from_numpy(xq)
+    calls = []
+
+    def block(xs):
+        calls.append(xs.shape[2])
+        return fused_bottleneck_plain(xs, fold, d)
+
+    got = in_strips(x, column_strips(w, p, d), block)
+    assert len(calls) == 2 and max(calls) < w
+    jargs = (
+        jnp.asarray(xq), jnp.float32(sx),
+        {k: jnp.asarray(v) for k, v in kernels.items()},
+        {k: (jnp.asarray(a), jnp.asarray(b)) for k, (a, b) in norms.items()},
+        jnp.float32(AM2), jnp.float32(AM3), jnp.float32(OUT_MAX),
+    )
+    want_r, _ = fused_bottleneck_reference(*jargs, dilation=d)
+    np.testing.assert_array_equal(got.numpy(), fused_bottleneck_plain(x, fold, d).numpy())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_r))
 
 
 CONV_CASES = {  # (k, stride, dilation, in channels, out channels)

@@ -45,7 +45,7 @@ from tubedetr_tpu_torch.ops.probe_bottleneck import (
 from tubedetr_tpu_torch.ops.probe_mm import bf16_mm, int8_mm, int8_mm_frames
 from tubedetr_tpu_torch.probes import fused_variants as fv
 from tubedetr_tpu_torch.probes import int8_matmul as im
-from tubedetr_tpu_torch.probes import k2_ablations, mm_ablations
+from tubedetr_tpu_torch.probes import mm_ablations
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, H, W, HWP, C, P = 4, 6, 6, 48, 128, 32
@@ -383,22 +383,3 @@ def test_mm_ablations_need_a_card_and_known_names():
         mm_ablations.main(["no_such"])
     with pytest.raises(RuntimeError, match="NVIDIA GPU"):
         mm_ablations.main(["no_b"])
-
-
-@pytest.mark.parametrize("name", list(k2_ablations.ABLATIONS))
-def test_k2_ablations_apply_to_the_sources(name):
-    """Each ablation of K2's kernel is one set of edits to the current
-    ``fused_bottleneck.cu``, each edit matching exactly once; ``base`` is the
-    sources as they are."""
-    base = k2_ablations.sources("base")
-    edited = k2_ablations.sources(name)
-    assert set(edited) == set(base) and "fused_bottleneck.cu" in base
-    changed = {f for f in base if edited[f] != base[f]}
-    assert changed == {f for f, _, _ in k2_ablations.ABLATIONS[name]}
-
-
-def test_k2_ablations_need_a_card_and_known_names():
-    with pytest.raises(SystemExit, match="unknown ablations"):
-        k2_ablations.main(["no_such"])
-    with pytest.raises(RuntimeError, match="NVIDIA GPU"):
-        k2_ablations.main(["no_mma"])

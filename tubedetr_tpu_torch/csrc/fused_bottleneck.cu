@@ -51,10 +51,11 @@
 // contiguous bytes. The epilogues transpose their int8 pairs across each
 // quad of lanes, so every lane moves 8 contiguous bytes of x, out, q1 or q2.
 //
-// Measured on an H100 (PERF.md): the three GEMMs share one accumulator
-// array (ptxas gives each array that wgmma writes registers of its own, and
-// three spill); the time left is the stage pipeline and the epilogues, not
-// the weights' stream from L2 (probes/k2_ablations.py).
+// The three GEMMs share one accumulator array: ptxas gives each array that
+// wgmma writes registers of its own, and three spill (PERF.md).
+//
+// A width whose q1 tile does not fit beside the ring (at P = 512 and d = 2,
+// W > 43) is refused here; the wrapper runs it in column strips.
 //
 // Arithmetic: epilogues use __fmul_rn / __fadd_rn (no FMA contraction) in the
 // reference's order, (acc*a + b) [+ x*sid], then relu, rintf (ties to even,

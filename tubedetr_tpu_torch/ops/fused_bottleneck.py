@@ -24,7 +24,9 @@ zero rows between frames (and above the first), so a tap is a constant offset
 the whole batch; conv1 runs over the compact rows of ``xq`` whose ``q1`` a
 band needs. The kernel computes the same plan (``fused_bottleneck_plan``);
 ``tests/test_torch_fused_bottleneck.py`` rebuilds the block from this plan
-in plain PyTorch.
+in plain PyTorch. A width whose q1 tile does not fit shared memory runs in
+column strips that overlap by ``d`` columns (``column_strips``), one launch
+each.
 """
 
 from __future__ import annotations
@@ -268,24 +270,55 @@ def n_bands(plan: TilePlan, n: int, h: int) -> int:
     return -(-grid_positions(n, h, plan) // plan.band)
 
 
-def l2_bytes(plan: TilePlan, n: int, h: int, c: int, variant: str = "full") -> int:
-    """Bytes the kernel's TMA loads read in one launch, from the tiling: the
-    in-bounds part of every box (zero fill costs no read). Every pair of
-    64-position tiles streams w2 and w3 once; every pair of conv1 tiles
-    streams w1 once and its 128 rows of x once a pass of ``NC1_MAX`` output
-    channels. Nearly all of it comes from L2: the weights stay there, and
-    only the first read of each row of x comes from device memory."""
+def tma_box_bytes(plan: TilePlan, n: int, h: int, c: int) -> int:
+    """A model of the bytes K2's TMA loads ask for in one launch, counted
+    from the tiling (no counter on the card measures it): the in-bounds part
+    of every box, zero fill not counted. Every pair of 64-position tiles
+    streams w2 and w3 once; every pair of conv1 tiles streams w1 once and its
+    128 rows of x once a pass of ``NC1_MAX`` output channels."""
     p = plan.p
     rows = n * h * plan.w
     x_passes = p // min(p, NC1_MAX)
-    per_pair2 = c * p + (0 if variant == "convonly" else 9 * p * p)
     total = 0
     for b in range(n_bands(plan, n, h)):
-        _, bm, _, p_lo, p_hi = band_span(plan, n, h, b, variant)
+        _, bm, _, p_lo, p_hi = band_span(plan, n, h, b)
         for row0 in range(p_lo, p_hi, 2 * TILE):
             total += p * c + x_passes * c * min(2 * TILE, rows - row0)
-        total += -(-bm // (2 * TILE)) * per_pair2
+        total += -(-bm // (2 * TILE)) * (c * p + 9 * p * p)
     return total
+
+
+def column_strips(w: int, p: int, dilation: int):
+    """The column strips K2 runs a frame of width ``w`` in, as ``(s0, s1, c0,
+    c1)``: a launch on input columns ``[s0, s1)`` whose output columns ``[c0,
+    c1)`` are kept. One strip where the width's plan fits; else the fewest
+    strips of equal width whose inputs, ``dilation`` columns wider on each
+    inner side, fit (at P=512 and d=2, the q1 tile of a width above 43 does
+    not fit beside the ring). The 3x3 at a kept column reads only columns of
+    its strip's input or the zero border, so the strips' outputs are exact.
+    None if not even one column fits."""
+    if tile_plan(w, p, dilation):
+        return [(0, w, 0, w)]
+    if tile_plan(min(w, 1 + 2 * dilation), p, dilation) is None:
+        return None
+    for k in range(2, w + 1):
+        step = -(-w // k)
+        strips = [(max(c0 - dilation, 0), min(c0 + step + dilation, w), c0, min(c0 + step, w))
+                  for c0 in range(0, w, step)]
+        if all(tile_plan(s1 - s0, p, dilation) for s0, s1, _, _ in strips):
+            return strips
+    return None  # unreachable: one column a strip fits
+
+
+def in_strips(xq: torch.Tensor, strips, block) -> torch.Tensor:
+    """``block`` (an ``(N, H, W', C)`` -> same-shape function) over the
+    column ``strips`` of ``xq``, the kept columns of each assembled."""
+    if len(strips) == 1:
+        return block(xq)
+    out = torch.empty_like(xq)
+    for s0, s1, c0, c1 in strips:
+        out[:, :, c0:c1] = block(xq[:, :, s0:s1].contiguous())[:, :, c0 - s0:c1 - s0]
+    return out
 
 
 def kernel_plan(w: int, p: int, dilation: int):
@@ -370,12 +403,13 @@ def check_input(xq: torch.Tensor, fold: BottleneckFold, dilation: int) -> None:
             f"K2 takes channel counts that are multiples of 64 with P in {KERNEL_PLANES} and "
             f"C a multiple of {CHANNEL_BYTES}; got C={c}, P={p}"
         )
-    plan = tile_plan(w, p, dilation)
-    if plan is None:
+    strips = column_strips(w, p, dilation)
+    if strips is None:
         raise ValueError(
-            f"K2's q1 tile for width {w} with {p} channels at dilation {dilation} does not fit "
+            f"K2's q1 tile for a column with {p} channels at dilation {dilation} does not fit "
             f"{SMEM_LIMIT} bytes of shared memory beside its ring"
         )
+    plan = tile_plan(max(s1 - s0 for s0, s1, _, _ in strips), p, dilation)
     if grid_positions(n, h, plan) + 2 * plan.band + 2 * plan.centre >= 2**31:
         raise ValueError(f"{n} frames of {h}x{w} exceed the kernel's 32-bit grid positions")
     for name, t in (("xq", xq), ("fold.w1", fold.w1), ("fold.w2", fold.w2), ("fold.w3", fold.w3)):
@@ -385,14 +419,20 @@ def check_input(xq: torch.Tensor, fold: BottleneckFold, dilation: int) -> None:
 
 def fused_bottleneck_block(xq: torch.Tensor, fold: BottleneckFold, dilation: int = 1):
     """One fused stride-1 bottleneck on the int8 stream ``(N, H, W, C)``:
-    returns ``(out int8 (N, H, W, C), fold.so)``."""
+    returns ``(out int8 (N, H, W, C), fold.so)``. On the card, one launch a
+    column strip (``column_strips``: one, unless the width's q1 tile does
+    not fit)."""
     check_input(xq, fold, dilation)
     if xq.device.type == "cpu":
         return fused_bottleneck_plain(xq, fold, dilation), fold.so
-    out = torch.empty_like(xq)
-    launch_k2(xq, out, fold, dilation)
-    fused_bottleneck_block.launches += 1
-    return out, fold.so
+
+    def launch(x):
+        out = torch.empty_like(x)
+        launch_k2(x, out, fold, dilation)
+        fused_bottleneck_block.launches += 1
+        return out
+
+    return in_strips(xq, column_strips(xq.shape[2], fold.channels[1], dilation), launch), fold.so
 
 
 fused_bottleneck_block.launches = 0

@@ -28,7 +28,9 @@ from tubedetr_tpu_torch.ops.fused_bottleneck import (
     _requant,
     check_input,
     check_stream,
+    column_strips,
     fused_bottleneck_plain,
+    in_strips,
     launch_fold_kernel,
     launch_k2,
 )
@@ -92,16 +94,21 @@ def bottleneck_variant_plain(xq: torch.Tensor, fold: BottleneckFold, variant: st
 
 
 def bottleneck_variant(xq: torch.Tensor, fold: BottleneckFold, variant: str) -> torch.Tensor:
-    """P4: one variant of K2 on the int8 stream ``(N, H, W, C)`` (dilation 1)."""
+    """P4: one variant of K2 on the int8 stream ``(N, H, W, C)`` (dilation 1),
+    in K2's column strips."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; expected one of {VARIANTS}")
     check_input(xq, fold, 1)
     if xq.device.type == "cpu":
         return bottleneck_variant_plain(xq, fold, variant)
-    out = torch.empty_like(xq)
-    launch_k2(xq, out, fold, 1, _ENTRY[variant])
-    bottleneck_variant.launches += 1
-    return out
+
+    def launch(x):
+        out = torch.empty_like(x)
+        launch_k2(x, out, fold, 1, _ENTRY[variant])
+        bottleneck_variant.launches += 1
+        return out
+
+    return in_strips(xq, column_strips(xq.shape[2], fold.channels[1], 1), launch)
 
 
 bottleneck_variant.launches = 0

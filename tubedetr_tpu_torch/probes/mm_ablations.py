@@ -31,15 +31,18 @@ whole ``int8_mm``). Without a card it raises.
 from __future__ import annotations
 
 import ctypes
+import os
+import shutil
 import statistics
+import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
-from tubedetr_tpu_torch.ops import probe_mm
-from tubedetr_tpu_torch.probes import build_edited, card_line, edited_sources, events_ms
+from tubedetr_tpu_torch.ops import _cuda_build, probe_mm
+from tubedetr_tpu_torch.probes import card_line
 from tubedetr_tpu_torch.probes.int8_matmul import HW, K, N, N_FRAMES
 from tubedetr_tpu_torch.utils.device import resolve_device
 
@@ -101,20 +104,50 @@ WRONG_SUMS = {"no_b", "half_b", "no_store"}  # ablations that drop work on purpo
 def sources(name: str) -> dict:
     """{file name: text} of ``probe_mm.cu`` and the headers under ablation
     ``name``; raises if an edit no longer applies to the sources."""
-    return edited_sources("probe_mm.cu", name, ABLATIONS[name])
+    files = {f: open(os.path.join(_cuda_build.CSRC, f)).read()
+             for f in os.listdir(_cuda_build.CSRC) if f == "probe_mm.cu" or f.endswith(".cuh")}
+    for f, text, new in ABLATIONS[name]:
+        if files[f].count(text) != 1:
+            raise RuntimeError(f"ablation {name} no longer applies to {f}: {text[:60]!r}")
+        files[f] = files[f].replace(text, new)
+    return files
 
 
 def build(names):
     """Build each ablation's library in parallel; returns {name: CDLL}."""
+    procs = {}
+    for name in names:
+        d = os.path.join(_cuda_build.BUILD, "ablations", name)
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+        for f, text in sources(name).items():
+            with open(os.path.join(d, f), "w") as fh:
+                fh.write(text)
+        lib = os.path.join(d, "libprobe_mm.so")
+        procs[name] = (lib, subprocess.Popen(
+            _cuda_build.nvcc_command(os.path.join(d, "probe_mm.cu"), lib),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
-    for name, (lib, _) in build_edited("probe_mm.cu", {n: sources(n) for n in names},
-                                       "ablations").items():
-        libs[name] = lib
+    for name, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for ablation {name}:\n{log}")
+        libs[name] = ctypes.CDLL(lib)
         for entry in ("probe_mm_s8", "probe_mm_bf16"):
-            fn = getattr(lib, entry)
+            fn = getattr(libs[name], entry)
             fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
     return libs
+
+
+def _events_ms(fn, launches=20):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
 
 
 def _host_us(fn, calls=100, rounds=10):
@@ -178,10 +211,10 @@ def run(names=tuple(ABLATIONS), seed=0, rounds=6, out=print):
             for probe in probes:
                 call(libs[name], probe)  # warm
                 times.setdefault((name, probe), []).append(
-                    events_ms(lambda: call(libs[name], probe), 20))
+                    _events_ms(lambda: call(libs[name], probe)))
         for probe, fn in library.items():
             fn()
-            times.setdefault(("library", probe), []).append(events_ms(fn, 20))
+            times.setdefault(("library", probe), []).append(_events_ms(fn))
     medians = {key: statistics.median(v) for key, v in times.items()}
     for (name, probe), ms in medians.items():
         rounds_ms = ", ".join(f"{t:.4f}" for t in times[name, probe])

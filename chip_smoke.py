@@ -11,7 +11,9 @@ line:
    ``nvcc`` per source, all started together);
 3. hold each kernel to its plain PyTorch version on the card and time the
    kernel, the plain version and a PyTorch yardstick with CUDA events: K1
-   (resize+normalize) at the serving shape, K2 (the fused int8 bottleneck)
+   (resize+normalize) at the serving shape, also padded to the bucket grid
+   as the pipeline asks for it (its registers and spills from the build
+   log; a spill fails), K2 (the fused int8 bottleneck)
    exactly at the four ResNet-101 tail shapes at 352x608 and the DC5 one
    with 16 frames, and exactly again, and timed, at the serving batch of
    N=400 frames;
@@ -29,9 +31,10 @@ line:
    read just after, each kernel held exactly to its plain version, and
    noshift and convonly timed beside K2 at layer3's serving shape. They run
    after the serving phases so that their GBs of inputs cannot move those.
-   For P1-P3 the entries also carry the kernel's registers, spills and
-   shared memory (its build log; a spill or an ignored ``setmaxnreg``
-   fails) and the wrapper's host microseconds a call.
+   P4 and P5 run K2's kernel (P5 in its flat layout). For P1-P3 and P5 the
+   entries also carry the kernel's registers, spills and shared memory (its
+   build log; a spill or an ignored ``setmaxnreg`` fails), for P1-P3 the
+   wrapper's host microseconds a call.
 
 Then one ``kernels`` JSON line, the ``nvidia-smi`` line again, and, last, the
 ``ok`` JSON line. There is no CPU path: without a card the script exits 2.
@@ -54,6 +57,7 @@ BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 # K1 at the serving shape: 200 frames of 360x640 -> 330x586 at res 352
 K1_SHAPE = (200, 360, 640, 3)
 K1_OUT = (330, 586)
+K1_PAD = (352, 608)  # the SIZE_BUCKET grid the pipeline pads to
 K1_CROP = (12, 20, 300, 560)
 K1_FLOPS_PER_OUT = 11  # 6 for the two row lerps, 3 for the column lerp, 2 affine
 F32_ATOL = 1e-4  # two f32 contractions summed in another order than the gather
@@ -109,40 +113,68 @@ def bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126))) - 7)
 
 
+def k1_usage():
+    """K1's two instantiations (f32 and bf16 out) as ``build_usage`` reads
+    the build log."""
+    usage = build_usage("resize_normalize")
+    out = {}
+    for kind, mangled in (("f32", "IfE"), ("bf16", "I13__nv_bfloat16E")):
+        found = [v for name, v in usage.items() if "resize_normalize_kernel" + mangled in name]
+        if len(found) != 1:
+            fail(f"resize_normalize: {len(found)} entries of the {kind} kernel in its build log "
+                 f"({list(usage)})")
+        out[kind] = found[0]
+    return out
+
+
 def phase_k1():
-    """K1 against its plain version at the serving shape; returns the
+    """K1 against its plain version at the serving shape, unpadded and
+    padded to the bucket grid as the pipeline asks for it; returns the
     kernels-line entry (launch count filled in after the main path)."""
     import torch
     import torch.nn.functional as F
 
     from tubedetr_tpu_torch.ops.preprocess import norm_affine
-    from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize, resize_normalize_plain
+    from tubedetr_tpu_torch.ops.resize_normalize import (
+        k1_schedule,
+        resize_normalize,
+        resize_normalize_plain,
+    )
     from tubedetr_tpu_torch.probes import cuda_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
+    usage = k1_usage()
     gen = torch.Generator().manual_seed(0)
     x = torch.randint(0, 256, K1_SHAPE, dtype=torch.uint8, generator=gen).cuda()
     n, ih, iw, _ = K1_SHAPE
     oh, ow = K1_OUT
+
     scale, shift = (torch.from_numpy(v).cuda() for v in norm_affine())
 
-    def library(crop, dtype):
+    def library(crop, dtype, pad_to):
         src = x if crop is None else x[:, crop[0]:crop[0] + crop[2], crop[1]:crop[1] + crop[3]]
         y = F.interpolate(src.permute(0, 3, 1, 2).float(), size=(oh, ow),
                           mode="bilinear", align_corners=False)
-        return (y.permute(0, 2, 3, 1) * scale + shift).to(dtype)
+        y = (y.permute(0, 2, 3, 1) * scale + shift).to(dtype)
+        return y if pad_to is None else F.pad(y, (0, 0, 0, pad_to[1] - ow, 0, pad_to[0] - oh))
 
     cases = {}
-    for name, crop, dtype in (
-        ("f32", None, torch.float32),
-        ("bf16", None, torch.bfloat16),
-        ("crop_f32", K1_CROP, torch.float32),
+    for name, crop, dtype, pad_to in (
+        ("f32", None, torch.float32, None),
+        ("bf16", None, torch.bfloat16, None),
+        ("crop_f32", K1_CROP, torch.float32, None),
+        ("pad_bf16", None, torch.bfloat16, K1_PAD),
     ):
-        out = resize_normalize(x, oh, ow, crop=crop, out_dtype=dtype)
-        ref32 = resize_normalize_plain(x, oh, ow, crop, torch.float32)
+        ph, pw = pad_to or (oh, ow)
+        # over memory filled with garbage, so a pad the kernel misses shows
+        torch.full((n, ph, pw, 3), float("nan"), dtype=dtype, device="cuda")
+        out = resize_normalize(x, oh, ow, crop=crop, out_dtype=dtype, pad_to=pad_to)
+        ref32 = resize_normalize_plain(x, oh, ow, crop, torch.float32, pad_to=pad_to)
         torch.cuda.synchronize()
-        if out.shape != (n, oh, ow, 3) or out.dtype != dtype:
+        if out.shape != (n, ph, pw, 3) or out.dtype != dtype:
             fail(f"K1 {name}: got {tuple(out.shape)} {out.dtype}")
+        if pad_to is not None and (bool(out[:, oh:].any()) or bool(out[:, :, ow:].any())):
+            fail(f"K1 {name}: a non-zero value in the pad")
         err = (out.float() - ref32).abs()
         if dtype == torch.float32:
             ok, tol = bool((err <= F32_ATOL).all()), f"atol {F32_ATOL}"
@@ -151,20 +183,29 @@ def phase_k1():
             # more than a bf16 ulp there
             ok = bool((err <= bf16_ulp(ref32) + F32_ATOL).all())
             tol = f"1 bf16 ulp + atol {F32_ATOL}"
-        lib_err = (library(crop, dtype).float() - ref32).abs().max().item()
-        out_bytes = n * oh * ow * 3 * out.element_size()
+        max_abs_err = err.max().item()
+        lib_err = (library(crop, dtype, pad_to).float() - ref32).abs().max().item()
+        del out, ref32, err
+        out_bytes = n * ph * pw * 3 * (2 if dtype == torch.bfloat16 else 4)
         bytes_ms = (x.numel() + out_bytes) / HBM_BYTES_PER_S * 1e3
         ops_ms = n * oh * ow * 3 * K1_FLOPS_PER_OUT / FP32_OPS_PER_S * 1e3
         case = {
-            "max_abs_err": err.max().item(),
+            "max_abs_err": max_abs_err,
             "tolerance": tol,
-            "ms": cuda_ms(lambda: resize_normalize(x, oh, ow, crop=crop, out_dtype=dtype)),
-            "plain_ms": cuda_ms(lambda: resize_normalize_plain(x, oh, ow, crop, dtype)),
-            "library_ms": cuda_ms(lambda: library(crop, dtype)),
+            "out": [n, ph, pw, 3],
+            "ms": cuda_ms(lambda: resize_normalize(x, oh, ow, crop=crop, out_dtype=dtype,
+                                                   pad_to=pad_to)),
+            "plain_ms": cuda_ms(lambda: resize_normalize_plain(x, oh, ow, crop, dtype, pad_to)),
+            "library_ms": cuda_ms(lambda: library(crop, dtype, pad_to)),
+            "library": "F.interpolate + affine" + (" + F.pad" if pad_to else ""),
             "library_max_abs_err": lib_err,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         }
+        sched = k1_schedule(ih, iw, oh, ow, crop, pad_to)
+        case.update(rows_per_block=sched.rows_per_block, staged_rows=sched.slots,
+                    **entry_usage(usage["bf16" if dtype == torch.bfloat16 else "f32"],
+                                  sched.smem_bytes))
         cases[name] = case
         print(f"[k1] {name}: {json.dumps(case)}", flush=True)
         if not ok:
@@ -242,7 +283,7 @@ def phase_k2():
     from tubedetr_tpu_torch.probes import cuda_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    usage = k2_usage()
+    usage = {p: entry_usage(u) for p, u in k2_usage()["k2"].items()}
     cases = {}
     for i, (name, (c, p, h, w, d, tails)) in enumerate(K2_STAGES.items()):
         model = {}  # printed on the [k2] line, kept out of the kernels line
@@ -395,22 +436,25 @@ def entry_usage(u: dict, dynamic_smem: int = 0) -> dict:
 
 
 def k2_usage():
-    """K2's kernel for each P it is built for (the ``kFull`` instantiation,
-    which the probe's ``noshift`` runs too; ``convonly`` has its own), from
-    ``build_usage``: fails unless there are 4 P x 2 entries."""
+    """K2's kernel for each P it is built for, as ``build_usage`` reads the
+    build log: K2's
+    ``kFull`` instantiation (which the probe's ``noshift`` runs too;
+    ``convonly`` has its own) under ``"k2"``, and the flat layout's two (P5's
+    ``hwpad`` and ``im2col``) under their names. Fails unless there are 4 P
+    x 4 entries: K2's 8 and the flat layout's 8."""
     import re
 
     usage = build_usage("fused_bottleneck")
-    out, seen = {}, []
+    out = {"k2": {}, "convonly": {}, "hwpad": {}, "im2col": {}}
+    # Variant 0 kFull, 2 kConvOnly, 3 kIm2col; Layout 0 compact, 1 flat
+    kinds = {("0", "0"): "k2", ("2", "0"): "convonly", ("0", "1"): "hwpad", ("3", "1"): "im2col"}
     for name, u in usage.items():
-        m = re.search(r"fused_bottleneck_kernelILi(\d+)E.*VariantE(\d)E", name)
-        if m:
-            seen.append(name)
-            if m.group(2) == "0":
-                out[int(m.group(1))] = entry_usage(u)
-    if len(seen) != 8 or sorted(out) != [64, 128, 256, 512]:
-        fail(f"fused_bottleneck: expected 8 kernel entries (4 P x full, convonly) in its build "
-             f"log, found {list(usage)}")
+        m = re.search(r"fused_bottleneck_kernelILi(\d+)E\w*?VariantE(\d)E\w*?LayoutE(\d)E", name)
+        if m and (m.group(2), m.group(3)) in kinds:
+            out[kinds[m.group(2), m.group(3)]][int(m.group(1))] = u
+    if any(sorted(v) != [64, 128, 256, 512] for v in out.values()) or len(usage) != 16:
+        fail(f"fused_bottleneck: expected 16 kernel entries (4 P x full, convonly, flat hwpad, "
+             f"flat im2col) in its build log, found {list(usage)}")
     return out
 
 
@@ -445,7 +489,7 @@ def phase_probes():
 
     from tubedetr_tpu_torch.ops import probe_bottleneck as pb
     from tubedetr_tpu_torch.ops import probe_mm
-    from tubedetr_tpu_torch.ops.fused_bottleneck import fused_bottleneck_block
+    from tubedetr_tpu_torch.ops.fused_bottleneck import fused_bottleneck_block, tile_plan
     from tubedetr_tpu_torch.probes import cuda_ms
     from tubedetr_tpu_torch.probes import fused_variants as fv
     from tubedetr_tpu_torch.probes import int8_matmul as im
@@ -531,6 +575,7 @@ def phase_probes():
 
     # ---- P4 and P5 at the script's shapes
     n, h, w, c, p = fv.N, fv.H, fv.W, fv.C, fv.P
+    flat_usage = k2_usage()  # P5 runs K2's kernel in its flat layout
     bv_cases, flat_cases = {}, {}
     for flat, cases in ((False, bv_cases), (True, flat_cases)):
         x, fold = fv.make_inputs(flat)
@@ -538,6 +583,7 @@ def phase_probes():
         outs = {}
         variants = dict.fromkeys(fv.parse_spec(spec)[0] for spec in PROBE_SPECS)
         for variant in (v for v in variants if (v in pb.FLAT_VARIANTS) == flat):
+            torch.full_like(x, 85)  # freed: the output lands on garbage, so a missed pad row shows
             out = fv.variant_call(variant, x, fold)()
             ref = fv.plain_call(variant, x, fold)()
             torch.cuda.synchronize()
@@ -561,6 +607,8 @@ def phase_probes():
                 "plain_ms": cuda_ms(fv.plain_call(variant, x, fold), groups=5, per_group=2),
                 "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
                 "tops": ops / row["ms"] / 1e9,
+                **({} if not flat else entry_usage(
+                    flat_usage[variant][p], tile_plan(w, p, 1, variant == "im2col").smem_bytes)),
             }
             say(f"{variant}: {json.dumps(case)}")
             if not torch.equal(out, ref):
@@ -602,7 +650,7 @@ def phase_probes():
         "probe_bottleneck_variants", "tubedetr_tpu_torch/csrc/fused_bottleneck.cu",
         "scripts/probe_fused_variants.py:129", bv_cases, "full", None))
     entries.append(probe_entry(
-        "probe_flat_bottleneck", "tubedetr_tpu_torch/csrc/probe_flat_bottleneck.cu",
+        "probe_flat_bottleneck", "tubedetr_tpu_torch/csrc/fused_bottleneck.cu",
         "scripts/probe_fused_variants.py:237", flat_cases, "hwpad", None))
     for entry, key in zip(entries, ("P1", "P2", "P3", "P4", "P5")):
         entry["launches"] = launches[key]

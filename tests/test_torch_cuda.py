@@ -25,12 +25,7 @@ from tubedetr_tpu_torch.ops.fused_bottleneck import (
     n_bands,
     tile_plan,
 )
-from tubedetr_tpu_torch.ops import _cuda_build
-from tubedetr_tpu_torch.ops.probe_bottleneck import (
-    bottleneck_variant,
-    flat_bottleneck,
-    flat_smem_bytes,
-)
+from tubedetr_tpu_torch.ops.probe_bottleneck import bottleneck_variant, flat_bottleneck
 from tubedetr_tpu_torch.ops.probe_mm import bf16_mm, int8_mm, int8_mm_frames
 from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize, resize_normalize_plain
 from tubedetr_tpu_torch.probes import fused_variants as fv
@@ -38,11 +33,23 @@ from tubedetr_tpu_torch.probes import int8_matmul as im
 
 pytestmark = pytest.mark.cuda
 
-K1_CASES = {  # (frames shape, out (h, w), crop, out dtype)
-    "plain": ((2, 36, 48, 3), (24, 32), None, torch.float32),
-    "crop": ((1, 40, 40, 3), (16, 16), (5, 8, 30, 24), torch.float32),
-    "bf16": ((1, 16, 16, 3), (8, 8), None, torch.bfloat16),
-    "serving-bf16": ((8, 360, 640, 3), (330, 586), None, torch.bfloat16),
+K1_CASES = {  # (frames shape, out (h, w), crop, out dtype, pad_to, leading frames sliced off)
+    "plain": ((2, 36, 48, 3), (24, 32), None, torch.float32, None, 0),
+    "crop": ((1, 40, 40, 3), (16, 16), (5, 8, 30, 24), torch.float32, None, 0),
+    "bf16": ((1, 16, 16, 3), (8, 8), None, torch.bfloat16, None, 0),
+    "serving-bf16": ((8, 360, 640, 3), (330, 586), None, torch.bfloat16, None, 0),
+    # the serving path's padded frame buffer, both dtypes
+    "pad-bf16": ((4, 360, 640, 3), (330, 586), None, torch.bfloat16, (352, 608), 0),
+    "pad-f32": ((4, 360, 640, 3), (330, 586), None, torch.float32, (352, 608), 0),
+    # 480p widescreen: source rows of 2562 bytes, 2 apart mod 16 from row to row
+    "odd-854": ((2, 480, 854, 3), (330, 587), None, torch.bfloat16, (352, 608), 0),
+    # rows of 1281 bytes, frames of an odd byte count, the batch sliced one
+    # frame in: the source base is not 16-byte aligned
+    "odd-427-misaligned": ((3, 241, 427, 3), (200, 355), None, torch.float32, (224, 384), 1),
+    # 1080p to 352: output rows 3 source rows apart, a staged row of 5760 bytes
+    "1080p-down": ((2, 1080, 1920, 3), (352, 626), None, torch.bfloat16, (352, 640), 0),
+    # 240p up to 352: taps clamp at both borders
+    "240p-up": ((2, 240, 426, 3), (352, 625), None, torch.float32, (352, 640), 0),
 }
 
 
@@ -59,21 +66,45 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 def test_k1_kernel_matches_plain(case):
     """f32 out within atol 1e-4; bf16 out within one bf16 ulp of the f32
     plain value plus that atol (near 0 the affine's cancellation leaves the
-    two f32 computations ~1e-6 apart, more than a bf16 ulp there); each call
-    launches the kernel once."""
+    two f32 computations ~1e-6 apart, more than a bf16 ulp there); the pad
+    exactly 0 (the output is ``torch.empty`` over memory filled with
+    garbage first); each call launches the kernel once."""
     require_cuda()
-    shape, (oh, ow), crop, dtype = K1_CASES[case]
+    shape, (oh, ow), crop, dtype, pad_to, lead = K1_CASES[case]
     gen = torch.Generator().manual_seed(4)
-    frames = torch.randint(0, 256, shape, dtype=torch.uint8, generator=gen).cuda()
+    batch = torch.randint(0, 256, (shape[0] + lead, *shape[1:]), dtype=torch.uint8, generator=gen)
+    frames = batch.cuda()[lead:]
+    assert frames.is_contiguous() and (frames.data_ptr() % 16 != 0) == (lead > 0)
+    ph, pw = pad_to or (oh, ow)
+    torch.full((shape[0], ph, pw, 3), float("nan"), dtype=dtype, device="cuda")  # freed: garbage
     before = resize_normalize.launches
-    out = resize_normalize(frames, oh, ow, crop=crop, out_dtype=dtype)
-    ref = resize_normalize_plain(frames, oh, ow, crop, torch.float32)
+    out = resize_normalize(frames, oh, ow, crop=crop, out_dtype=dtype, pad_to=pad_to)
+    ref = resize_normalize_plain(frames, oh, ow, crop, torch.float32, pad_to=pad_to)
     torch.cuda.synchronize()
     assert resize_normalize.launches == before + 1
-    assert out.shape == (shape[0], oh, ow, 3) and out.dtype == dtype
+    assert out.shape == (shape[0], ph, pw, 3) and out.dtype == dtype
     err = (out.float() - ref).abs()
     tol = 1e-4 if dtype == torch.float32 else bf16_ulp(ref) + 1e-4
     assert bool((err <= tol).all()), err.max().item()
+    assert not out[:, oh:].any() and not out[:, :, ow:].any()
+
+
+def test_k1_smem_bytes_is_the_kernels_count():
+    """The wrapper's shared-memory count for a K1 block, which it checks
+    before a launch, is the one the built kernel requests."""
+    require_cuda()
+    import ctypes
+
+    from tubedetr_tpu_torch.ops import _cuda_build
+    from tubedetr_tpu_torch.ops.resize_normalize import k1_schedule
+
+    fn = _cuda_build.load("resize_normalize").resize_normalize_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_longlong
+    for ih, iw, oh, ow, pad_to in ((360, 640, 330, 586, (352, 608)), (480, 854, 330, 587, None),
+                                   (1080, 1920, 352, 626, (352, 640)), (241, 427, 200, 355, None)):
+        sched = k1_schedule(ih, iw, oh, ow, None, pad_to)
+        assert sched.smem_bytes == fn(ow, (pad_to or (oh, ow))[1], sched.x_len, sched.slots,
+                                      sched.rows_per_block)
 
 
 def test_k1_rejects_non_contiguous():
@@ -197,11 +228,13 @@ def test_k2_plan_is_the_kernels_plan(p):
     before a launch, is the one the built kernel makes, at the stage widths
     and small ones, and both refuse the same too-wide band."""
     require_cuda()
-    for w, d in ((152, 1), (76, 1), (38, 1), (19, 1), (38, 2), (5, 1), (13, 2), (4096, 1)):
-        plan = tile_plan(w, p, d)
-        mine = None if plan is None else (plan.tw, plan.stages, plan.tiles, plan.q1_rows,
-                                          plan.smem_bytes)
-        assert kernel_plan(w, p, d) == mine, (w, p, d)
+    for w, d in ((152, 1), (76, 1), (38, 1), (19, 1), (38, 2), (5, 1), (13, 2), (4096, 1),
+                 (22, 1), (7, 1)):
+        for im2col in (False, True):  # im2col: P5's variant with its patch slots
+            plan = tile_plan(w, p, d, im2col)
+            mine = None if plan is None else (plan.tw, plan.stages, plan.tiles, plan.q1_rows,
+                                              plan.smem_bytes)
+            assert kernel_plan(w, p, d, im2col) == mine, (w, p, d, im2col)
     assert kernel_plan(38, 192, 1) is None and tile_plan(38, 192, 1) is None
 
 
@@ -291,6 +324,8 @@ def test_probe_gemms_match_plain(case):
 PROBE_BLOCK_CASES = {  # (frames, height, width, C, P)
     "small": (3, 5, 7, 256, 64),
     "tall-odd": (2, 9, 13, 512, 128),
+    # P=512: im2col's conv2 runs in passes of 128 channels there
+    "p512": (2, 6, 9, 2048, 512),
 }
 
 
@@ -311,32 +346,21 @@ def test_probe_bottleneck_variants_match_plain(case, variant):
 @pytest.mark.parametrize("variant", ["hwpad", "im2col"])
 @pytest.mark.parametrize("case", list(PROBE_BLOCK_CASES))
 def test_flat_bottleneck_matches_plain(case, variant):
-    """P5 equals its plain version bit for bit, pad rows 0, at frames of
-    h*w + w + 1 rows (not a multiple of 16) whose blocks cross frames and end
-    ragged."""
+    """P5, K2's kernel in its flat layout, equals its plain version bit for
+    bit, pad rows 0 (the output is ``torch.empty`` over memory filled with
+    garbage first), at frames of h*w + w + 1 rows (not a multiple of 16)
+    whose bands and TMA boxes cross frames and end ragged."""
     require_cuda()
     n, h, w, c, p = PROBE_BLOCK_CASES[case]
     hwp = h * w + w + 1
     x, fold = fv.make_inputs(True, n, h, w, c, p, hwp, device="cuda")
+    torch.full_like(x, 85)  # freed: garbage where the output will be
     before = flat_bottleneck.launches
     out = fv.variant_call(variant, x, fold, h, w)()
     torch.cuda.synchronize()
     assert flat_bottleneck.launches == before + 1
     assert torch.equal(out, fv.plain_call(variant, x, fold, h, w)())
     assert not out[:, h * w:].any()
-
-
-@pytest.mark.parametrize("variant", ["hwpad", "im2col"])
-def test_flat_smem_bytes_is_the_kernels_count(variant):
-    """The wrapper's shared-memory count for a P5 block, which it checks
-    before a launch, is the one the built kernel requests."""
-    require_cuda()
-    import ctypes
-
-    fn = _cuda_build.load("probe_flat_bottleneck").flat_bottleneck_smem_bytes
-    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
-    for w, p in ((fv.W, fv.P), (13, 128), (38, 64)):
-        assert flat_smem_bytes(variant, w, p) == fn(int(variant == "im2col"), w, p), (w, p)
 
 
 def test_probe_gemms_reject_unaligned_bases():

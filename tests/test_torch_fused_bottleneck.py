@@ -37,6 +37,7 @@ from tubedetr_tpu_torch.ops.fused_bottleneck import (
     grid_to_compact,
     in_strips,
     n_bands,
+    pad_frames_of_band,
     quantize_weight,
     tile_plan,
     tma_box_bytes,
@@ -186,38 +187,83 @@ def test_band_rows_fit_shared_memory(stage):
     assert tiles == MAX_TILES or TilePlan(w, p, d, stages, tiles + 1).smem_bytes > SMEM_LIMIT
     assert stages == MAX_STAGES or TilePlan(w, p, d, stages + 1, 4).smem_bytes > SMEM_LIMIT
     assert tile_plan(64 * w, p, d) is None
+    assert tile_plan(w, p, d, im2col=False) == plan  # K2 has no patch
     # the model of a launch's TMA boxes at N=400: the weights more than once,
     # x at least once
     assert tma_box_bytes(plan, 400, h, c) > 400 * h * w * c + 2 * c * p + 9 * p * p
 
 
-def tiled_block(xq, fold, dilation, plan, variant="full"):
+IM2COL_PLANS = {  # (W, P) -> (ring stages, 64-position tiles a band)
+    "p5": ((22, 256), (2, 5)),  # the probe's shape: the patch costs the third ring stage
+    "p128": ((13, 128), (3, 9)),  # the card test's tall-odd width: four tiles fewer
+}
+
+
+@pytest.mark.parametrize("case", list(IM2COL_PLANS))
+def test_im2col_plan_counts_its_patch(case):
+    """P5's im2col keeps four patch slots (two a consumer warpgroup) of 64
+    positions of one 128-byte slice of K (64 bytes at P=64) beside K2's
+    plan; the flat layout changes nothing else in it."""
+    (w, p), (stages, tiles) = IM2COL_PLANS[case]
+    plan, k2 = tile_plan(w, p, 1, im2col=True), tile_plan(w, p, 1)
+    assert (plan.stages, plan.tiles) == (stages, tiles) and plan.im2col and not k2.im2col
+    assert plan.smem_bytes == TilePlan(w, p, 1, stages, tiles).smem_bytes + 4 * 64 * min(p, 128)
+    assert plan.smem_bytes <= SMEM_LIMIT
+    assert tiles == MAX_TILES or TilePlan(w, p, 1, stages, tiles + 1, True).smem_bytes > SMEM_LIMIT
+    assert stages == MAX_STAGES or TilePlan(w, p, 1, stages + 1, 4, True).smem_bytes > SMEM_LIMIT
+
+
+def tiled_block(xq, fold, dilation, plan, variant="full", hw=None):
     """The block rebuilt in plain PyTorch from K2's tile plan, band by band:
-    conv1 over the compact rows ``band_span`` gives, the fold scattered into
-    a zeroed q1 tile at the grid positions, conv2 as nine products of that
-    tile shifted by ``tap_offsets`` over whole 64-position tiles (``noshift``:
-    nine reads of the centre; ``convonly``: q2 = q1), conv3 and the residual
-    at the band's real positions. Every pixel is written once."""
-    n, h, w, c = xq.shape
+    conv1 over the rows ``band_span`` gives, the fold scattered into a zeroed
+    q1 tile at the grid positions, conv2 as nine products of that tile
+    shifted by ``tap_offsets`` over whole 64-position tiles (``noshift``:
+    nine reads of the centre; ``convonly``: q2 = q1; ``im2col``: the nine
+    shifted tiles side by side as one (span, 9P) patch and one K=9P
+    product), conv3 and the residual at the band's real positions.
+
+    With ``hw = (h, w)`` the stream is P5's flat layout ``(N, HWP, C)``:
+    conv1 runs over the flat rows from the band's first real pixel to its
+    last, pad rows between frames included, and drops the pad rows on the
+    way into q1; conv3 reads and writes flat rows; the band that holds a
+    frame's last real pixel writes that frame's pad rows 0. Every row of the
+    output is written once."""
+    if hw is None:
+        n, h, w, c = xq.shape
+        frame_rows = None
+    else:
+        (n, frame_rows, c), (h, w) = xq.shape, hw
     rows = xq.reshape(-1, c)
-    out = torch.zeros_like(rows)
+    out = torch.full_like(rows, 99)  # never a kernel's output: every row must be written
     written = torch.zeros(rows.shape[0], dtype=torch.int32)
-    offsets = plan.tap_offsets() if variant == "full" else (0,) * 9
+    offsets = plan.tap_offsets() if variant in ("full", "im2col") else (0,) * 9
     for b in range(n_bands(plan, n, h)):
-        m0, bm, q_lo, p_lo, p_hi = band_span(plan, n, h, b, variant)
+        m0, bm, q_lo, p_lo, p_hi = band_span(plan, n, h, b, variant, frame_rows)
+        if frame_rows:
+            for f in pad_frames_of_band(plan, n, h, b):
+                out[f * frame_rows + h * w:(f + 1) * frame_rows] = 0
+                written[f * frame_rows + h * w:(f + 1) * frame_rows] += 1
         tile = torch.zeros(plan.q1_rows, plan.p, dtype=torch.int8)
-        ti = compact_to_grid(torch.arange(p_lo, p_hi), h, plan) - q_lo
+        ti = compact_to_grid(torch.arange(p_lo, p_hi), h, plan, frame_rows)
+        real = ti >= 0
+        assert bool(real.all()) or frame_rows, "a compact row is always real"
+        ti = ti[real] - q_lo
         assert p_hi == p_lo or (int(ti.min()) >= 0 and int(ti.max()) < plan.q1_rows)
-        tile[ti] = _requant(int_mm(rows[p_lo:p_hi], fold.w1.t()).float() * fold.a1 + fold.b1)
+        q1 = _requant(int_mm(rows[p_lo:p_hi], fold.w1.t()).float() * fold.a1 + fold.b1)
+        tile[ti] = q1[real]
         span = -(-bm // 64) * 64  # whole tiles, as the kernel computes them
         assert span + max(offsets) <= plan.q1_rows
         if variant == "convonly":
             q2 = tile[:span]
+        elif variant == "im2col":
+            patch = torch.cat([tile[o:o + span] for o in offsets], dim=1)
+            w2 = fold.w2.transpose(0, 1).reshape(plan.p, 9 * plan.p)  # [out][tap, in]
+            q2 = _requant(int_mm(patch, w2.t()).float() * fold.a2 + fold.b2)
         else:
             acc2 = sum(int_mm(tile[o:o + span].contiguous(), fold.w2[t].t())
                        for t, o in enumerate(offsets))
             q2 = _requant(acc2.float() * fold.a2 + fold.b2)
-        px = grid_to_compact(torch.arange(m0, m0 + bm), h, plan)
+        px = grid_to_compact(torch.arange(m0, m0 + bm), h, plan, frame_rows)
         keep = px >= 0
         px = px[keep]
         y3 = (int_mm(q2[:bm][keep].contiguous(), fold.w3.t()).float() * fold.a3 + fold.b3
@@ -225,7 +271,7 @@ def tiled_block(xq, fold, dilation, plan, variant="full"):
         out[px] = _requant(y3)
         written[px] += 1
     assert bool((written == 1).all())
-    return out.reshape(n, h, w, c)
+    return out.reshape(xq.shape)
 
 
 TILED_CASES = {  # (frames, height, width, dilation, tiles a band)

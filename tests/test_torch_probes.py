@@ -16,7 +16,7 @@ Tolerances:
   stay below 2**24 are exact in f32).
 * P4, P5: every spec that computes the full block (``full``, ``dot2d``,
   ``hwpad``, ``im2col``) equals the port's plain version of ``full``
-  exactly. Against the interpreted kernel each variant may differ by one
+  exactly, and so does P5 rebuilt from K2's tile plan in its flat layout. Against the interpreted kernel each variant may differ by one
   int8 step on at most 0.1% of the elements: the kernel is compiled by XLA,
   which contracts ``acc * a + b + x * 0.01`` into FMAs where the port rounds
   each operation, the rule of ``tests/test_torch_fused_bottleneck.py``.
@@ -35,11 +35,12 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from tubedetr_tpu_torch.ops import _cuda_build
+from tubedetr_tpu_torch.ops.fused_bottleneck import TilePlan
 from tubedetr_tpu_torch.ops.probe_bottleneck import (
     FLAT_VARIANTS,
     bottleneck_variant,
     flat_bottleneck,
-    flat_smem_bytes,
+    flat_bottleneck_plain,
     probe_fold,
 )
 from tubedetr_tpu_torch.ops.probe_mm import bf16_mm, int8_mm, int8_mm_frames
@@ -207,6 +208,26 @@ def test_p4_p5_match_the_script_kernel(spec, fold_name):
         assert (got[:, :HW] == 127).any() and ((got > 0) & (got < 127)).float().mean() > 0.2
 
 
+@pytest.mark.parametrize("fold_name,tiles", [("script", 1), ("wide", 2)])
+@pytest.mark.parametrize("variant", FLAT_VARIANTS)
+def test_flat_layout_on_k2s_plan_matches_the_script(variant, fold_name, tiles):
+    """P5 as the card runs it, K2's kernel in its flat layout, rebuilt band
+    by band from K2's plan (``tiled_block`` with ``hw``: flat rows into the
+    q1 grid, pad rows dropped there and written 0 in the output; im2col as
+    one K=9P product over the patch) at the probe tests' shapes: 4 frames of
+    6x6 in 48 rows, bands of 64 or 128 positions that cross frames. Equal to
+    the plain version; within one int8 step of the script's
+    ``make_kernel_flat`` in interpret mode on at most 0.1% of the elements."""
+    from tests.test_torch_fused_bottleneck import tiled_block
+
+    x, fold, jargs = bottleneck_inputs(True, fold_name)
+    plan = TilePlan(W, P, 1, 2, tiles, im2col=variant == "im2col")
+    got = tiled_block(x, fold, 1, plan, "im2col" if variant == "im2col" else "full", hw=(H, W))
+    np.testing.assert_array_equal(got.numpy(), flat_bottleneck_plain(x, fold, H, W).numpy())
+    assert_within_one_step(got.numpy(), script_bottleneck(variant, 2, jargs, True))
+    assert not got[:, HW:].any() and bool(x[:, HW:].ne(0).any())  # pad rows in: random; out: 0
+
+
 @pytest.mark.parametrize("variant", ["noshift", "convonly"])
 def test_noshift_and_convonly_match_numpy(variant):
     """An independent numpy reference: noshift is conv1, then q1 times the sum
@@ -294,17 +315,6 @@ def test_entry_points_on_the_cpu():
     for main in (im.main, lambda: fv.main([])):
         with pytest.raises(RuntimeError, match="NVIDIA GPU"):
             main()
-
-
-@pytest.mark.parametrize("variant,rows", [("hwpad", 128), ("im2col", 64)])
-def test_flat_blocks_fit_shared_memory(variant, rows):
-    """At the script's width and channels each P5 block fits the 227 KB a
-    block may opt into: hwpad 128 rows a block, im2col 64 beside its
-    (rows, 9P) patch."""
-    ps = fv.P + 16
-    patch = rows * (9 * fv.P + 16) if variant == "im2col" else 0
-    assert flat_smem_bytes(variant, fv.W, fv.P) == (2 * rows + 2 * (fv.W + 1) + 1) * ps + patch
-    assert flat_smem_bytes(variant, fv.W, fv.P) <= 227 * 1024
 
 
 def test_a_changed_header_makes_every_library_stale(tmp_path, monkeypatch):

@@ -131,12 +131,10 @@ class GroundingPipeline:
 
         ct = make_eval_transform(h, w, np.zeros((0, 4)), cfg.resolution)
         frames_u8 = torch.from_numpy(np.ascontiguousarray(raw, dtype=np.uint8)).to(self.device)
-        resized = resize_normalize(frames_u8, ct.out_h, ct.out_w, out_dtype=self.frames_dtype)
-        # pad to the SIZE_BUCKET grid on the device; the pad is 0 in
-        # normalized units, as the JAX pipeline pads
-        ph, pw = bucket(ct.out_h), bucket(ct.out_w)
-        frames = resized.new_zeros((t, ph, pw, 3))
-        frames[:, : ct.out_h, : ct.out_w] = resized
+        # K1 writes the frames padded to the SIZE_BUCKET grid in one launch;
+        # the pad is 0 in normalized units, as the JAX pipeline pads
+        frames = resize_normalize(frames_u8, ct.out_h, ct.out_w, out_dtype=self.frames_dtype,
+                                  pad_to=(bucket(ct.out_h), bucket(ct.out_w)))
         sample = VideoSample(
             frames=frames,
             valid_hw=(ct.out_h, ct.out_w),

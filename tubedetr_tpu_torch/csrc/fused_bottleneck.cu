@@ -57,6 +57,29 @@
 // A width whose q1 tile does not fit beside the ring (at P = 512 and d = 2,
 // W > 43) is refused here; the wrapper runs it in column strips.
 //
+// The flat layout (Layout::kFlat, probe P5: scripts/probe_fused_variants.py
+// `run_flat`, body `make_kernel_flat`) is K2's kernel on frames stored HWP
+// rows apart: H*W real rows, then HWP - H*W pad rows. Only the frame stride
+// of x and out changes: conv1 streams the flat rows its band needs, pad rows
+// between frames included (one 2-D TMA map over N*HWP rows), and drops the
+// pad rows on the way into the q1 grid, so they read 0 as the zeroed tile's
+// other padding does; conv3 reads the residual and stores at flat rows; the
+// band that holds a frame's last real position writes that frame's pad rows
+// of out as zeros. The taps need no column masks, as in K2. Two variants:
+//   hwpad   (kFull) K2's nine accumulated tap products as they stand;
+//   im2col  (kIm2col) before each ring stage of conv2, each consumer
+//           warpgroup copies its tile's 64 rows of the stage's tap and
+//           128-byte slice of K out of the bordered q1 tile into a patch
+//           buffer (two slots a warpgroup, interleaved layout), and the
+//           product reads the patch: the K = 9P product over a patch as the
+//           TPU variant builds it, a slice at a time (a whole 64 x 9P patch,
+//           147 KB at P = 256, does not fit beside the ring and q1). The
+//           plan counts the four slots.
+// Both are compile-time choices: K2's own instantiations (kCompact) compile
+// as before. P5's bound at the script's shapes (N = 200, HWP = 512, 22 x 22,
+// C = 1024, P = 256): 2.16e11 int8 operations on the real rows, 0.109 ms at
+// 1979 TOP/s, against 210 MB of stream in and out (0.063 ms at 3.35 TB/s).
+//
 // Arithmetic: epilogues use __fmul_rn / __fadd_rn (no FMA contraction) in the
 // reference's order, (acc*a + b) [+ x*sid], then relu, rintf (ties to even,
 // as jnp.round / torch.round), clamp to [0, 127]: given the same folds the
@@ -80,21 +103,27 @@ constexpr int kAlign = 1024;                    // slack to align the ring for t
 constexpr int kBarBytes = 128;                  // the ring's full and empty barriers
 constexpr int kSmemLimit = 232448;              // opt-in shared memory of one block on sm_90
 
-// Which parts of the block run. kFull is K2. The other two are the probes of
-// scripts/probe_fused_variants.py (`run`, P4), K2 with one part switched off:
+// Which parts of the block run. kFull is K2. kNoShift and kConvOnly are the
+// probes of scripts/probe_fused_variants.py (`run`, P4), K2 with one part
+// switched off:
 //   kNoShift   conv1 over the band only (no halo), and the 9 taps all read
 //              the centre: the 3x3's work without its shifted reads and halo
 //              (kFull's compiled kernel, run with Params::halo = 0);
 //   kConvOnly  q2 = q1, no conv2: conv1 + conv3 alone.
+// kIm2col is P5's im2col (run_flat, flat layout only): kFull with conv2's A
+// read from a patch copied out of q1 a stage at a time.
 // The probe's `dot2d` variant split a 3D dot into per-frame 2D dots, a
 // question of how Mosaic lowers the code, and its F (frames per grid step)
 // has no counterpart here: both run kFull.
-enum class Variant { kFull, kNoShift, kConvOnly };
+enum class Variant { kFull, kNoShift, kConvOnly, kIm2col };
+enum class Layout { kCompact, kFlat };  // frames H*W rows apart, or HWP (P5)
 
 // ---------------------------------------------------------------- the plan
 
-// The shape of the tiling for a width, mid channels and dilation; mirrored by
-// tile_plan in ops/fused_bottleneck.py (a card test holds the two equal).
+// The shape of the tiling for a width, mid channels and dilation (and the
+// im2col variant's patch); mirrored by tile_plan in ops/fused_bottleneck.py
+// (a card test holds the two equal). The flat layout leaves it as it is: the
+// q1 tile spans grid positions whatever the frame stride of x.
 struct Plan {
   int tw;       // padded width W + 2d
   int stages;   // ring stages of kSlotBytes
@@ -107,30 +136,34 @@ inline int q1_rows_of(int tiles, int tw, int d) {
   return (kTile * tiles + 2 * d * tw + 2 * d + 7) / 8 * 8;
 }
 
-inline long long smem_of(int p, int stages, int tiles, int q1_rows) {
+// One slot of the im2col patch: 64 positions of one 128-byte slice of K (64
+// bytes at P = 64); two slots for each consumer warpgroup.
+inline int patch_slot_of(int p) { return kTile * (p < 128 ? p : 128); }
+
+inline long long smem_of(int p, int stages, int tiles, int q1_rows, bool im2col) {
   return kAlign + (long long)stages * kSlotBytes + kBarBytes + (long long)q1_rows * p +
-         (long long)kTile * (tiles < 2 ? tiles : 2) * p;
+         (long long)kTile * (tiles < 2 ? tiles : 2) * p + (im2col ? 4LL * patch_slot_of(p) : 0);
 }
 
 // The most tiles (at most kMaxTiles) that fit beside `stages` ring stages.
-inline int tiles_fitting(int w, int p, int d, int stages) {
+inline int tiles_fitting(int w, int p, int d, int stages, bool im2col) {
   const int tw = w + 2 * d;
   int tiles = 0;
   for (int t = 1; t <= kMaxTiles; ++t)
-    if (smem_of(p, stages, t, q1_rows_of(t, tw, d)) <= kSmemLimit) tiles = t;
+    if (smem_of(p, stages, t, q1_rows_of(t, tw, d), im2col) <= kSmemLimit) tiles = t;
   return tiles;
 }
 
 // 3 ring stages if that leaves a band of at least 4 tiles, else 2 stages with
 // the most tiles that fit. False if not even one tile fits
 // or P is not one the kernel is built for.
-inline bool make_plan(int w, int p, int d, Plan* out) {
+inline bool make_plan(int w, int p, int d, bool im2col, Plan* out) {
   if (!(p == 64 || p == 128 || p == 256 || p == 512) || w < 1 || d < 1 || w > (1 << 20) ||
       d > (1 << 20))
     return false;
-  int stages = kMinStages, tiles = tiles_fitting(w, p, d, kMinStages);
+  int stages = kMinStages, tiles = tiles_fitting(w, p, d, kMinStages, im2col);
   for (int s = kMaxStages; s > kMinStages; --s) {
-    const int t = tiles_fitting(w, p, d, s);
+    const int t = tiles_fitting(w, p, d, s, im2col);
     if (t >= 4) {
       stages = s;
       tiles = t;
@@ -142,7 +175,7 @@ inline bool make_plan(int w, int p, int d, Plan* out) {
   out->stages = stages;
   out->tiles = tiles;
   out->q1_rows = q1_rows_of(tiles, out->tw, d);
-  out->smem = (int)smem_of(p, stages, tiles, out->q1_rows);
+  out->smem = (int)smem_of(p, stages, tiles, out->q1_rows, im2col);
   return true;
 }
 
@@ -153,6 +186,7 @@ struct Params {
   int8_t* out;
   const float *a1, *b1, *a2, *b2, *a3, *b3, *sid;
   int N, H, W, C, d;
+  int frame_rows;  // rows a frame of x and out: H*W, or HWP in the flat layout
   int halo;        // 1: conv1 over the halo and shifted taps (K2); 0: kNoShift
   int tw, hd;      // padded width W + 2d; grid rows a frame, H + d
   int stages, tiles, q1_rows;
@@ -160,13 +194,15 @@ struct Params {
   int nbands;
 };
 
-template <int P>
+template <int P, Variant V = Variant::kFull>
 struct Widths {
   static constexpr int kNC1 = P < 128 ? P : 128;    // conv1 output channels a pass
   // the widest wgmma tile: 64 x 256 (128 registers a thread) from P = 256 on,
   // 64 x 128 below, where the stages are short anyway
   static constexpr int kNMax = P < 256 ? 128 : 256;
-  static constexpr int kNC2 = P < kNMax ? P : kNMax;  // conv2 output channels a pass
+  // conv2 output channels a pass; im2col at P = 512 takes 128 (a 64 x 256
+  // accumulator beside its patch copy spills)
+  static constexpr int kNC2 = V == Variant::kIm2col && P == 512 ? 128 : (P < kNMax ? P : kNMax);
   static constexpr int kNC3 = kNMax;                  // conv3 output channels a pass
   static constexpr int kKP = (P + 127) / 128;       // 128-byte slices of K = P
   static constexpr int kStepsP = P < 128 ? P / 32 : 4;  // wgmma k-steps in each of them
@@ -220,25 +256,35 @@ __device__ __forceinline__ int real_before(int q, const Params& p) {
 struct Band {
   int m0, bm;    // first output grid position, positions in the band
   int q_lo;      // q1 grid index of the tile's first position
-  int p_lo, m1;  // first compact x row conv1 needs, and how many
+  int p_lo, m1;  // first x row conv1 needs, and how many (flat: pad rows between included)
   int t1, t2;    // 64-row tiles of conv1, of conv2 and conv3
 };
 
-template <Variant V>
+template <Variant V, Layout L>
 __device__ __forceinline__ Band band_at(int b, const Params& p) {
   Band r;
   r.m0 = b * kTile * p.tiles;
   r.bm = min(kTile * p.tiles, p.total - r.m0);
   const int centre = p.d * p.tw + p.d;
-  const bool halo = V == Variant::kFull && p.halo;
+  const bool halo = (V == Variant::kFull || V == Variant::kIm2col) && p.halo;
   r.q_lo = halo ? r.m0 : r.m0 + centre;
   const int ext = halo ? r.bm + 2 * centre : r.bm;
   r.p_lo = real_before(r.q_lo, p);
   r.m1 = real_before(r.q_lo + ext, p) - r.p_lo;
+  if constexpr (L == Layout::kFlat) {  // compact counts -> flat rows, first to last real
+    const int hw = p.H * p.W, c_lo = r.p_lo, c_hi = r.p_lo + r.m1;
+    r.p_lo = c_lo / hw * p.frame_rows + c_lo % hw;
+    r.m1 = c_hi > c_lo ? (c_hi - 1) / hw * p.frame_rows + (c_hi - 1) % hw + 1 - r.p_lo : 0;
+  }
   r.t1 = (r.m1 + kTile - 1) / kTile;
   r.t2 = (r.bm + kTile - 1) / kTile;
   return r;
 }
+
+// No work before a stage (every GEMM but im2col's conv2).
+struct NoPrep {
+  __device__ __forceinline__ void operator()(int) const {}
+};
 
 // One run of `nsteps` ring stages accumulated into acc, KSTEPS wgmma k-steps
 // of 32 bytes a stage; B at byte `boff` of each stage (swizzled), A from
@@ -246,16 +292,19 @@ __device__ __forceinline__ Band band_at(int b, const Params& p) {
 // ring, the full and empty barriers). Both consumer warpgroups wait on every
 // stage and release it (one arrival a warp); an inactive warpgroup (its tile
 // past the band) issues nothing. One wgmma group stays in flight while the
-// next stage arrives, as in probe_mm.cu.
-template <int KSTEPS, int R, typename ADesc>
+// next stage arrives, as in probe_mm.cu. An active warpgroup runs prep(step)
+// before it waits for the stage (im2col's patch copy: the group two steps
+// back, the last reader of that slot, is done by then).
+template <int KSTEPS, int R, typename ADesc, typename Prep = NoPrep>
 __device__ __forceinline__ void mma_steps(int32_t (&acc)[R], int nsteps, bool active,
                                           uint32_t ring, uint32_t full, uint32_t empty,
                                           int& stage, uint32_t& phase, int stages, int boff,
-                                          ADesc adesc) {
+                                          ADesc adesc, Prep prep = Prep()) {
   const int lane = threadIdx.x & 31;
   int prev = -1;
 #pragma unroll 1
   for (int s = 0; s < nsteps; ++s) {
+    if (active) prep(s);
     mbar_wait(full + 8 * stage, phase);
     const uint32_t slot = ring + stage * kSlotBytes;
     if (active) {
@@ -369,19 +418,20 @@ __device__ __forceinline__ void store_fold(const int32_t (&acc)[R], uint32_t bas
   }
 }
 
-template <int P, Variant V>
+template <int P, Variant V, Layout L>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_bottleneck_kernel(const __grid_constant__ CUtensorMap xmap,
                             const __grid_constant__ CUtensorMap w1map,
                             const __grid_constant__ CUtensorMap w2map,
                             const __grid_constant__ CUtensorMap w3map, const Params p) {
-  using Wd = Widths<P>;
+  using Wd = Widths<P, V>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = smem_raw + ((kAlign - (smem_u32(smem_raw) & (kAlign - 1))) & (kAlign - 1));
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + p.stages * kSlotBytes);
   uint64_t* empty = full + kMaxStages;
   int8_t* q1 = reinterpret_cast<int8_t*>(ring + p.stages * kSlotBytes + kBarBytes);
   int8_t* q2 = q1 + (size_t)p.q1_rows * P;
+  int8_t* patch = q2 + (size_t)kTile * (p.tiles < 2 ? p.tiles : 2) * P;  // im2col: 4 slots
   const int stages = p.stages;
   const int kc = p.C / kTileKBytes;  // 128-byte slices of K = C
   constexpr int kNC3 = Wd::kNC3;
@@ -421,7 +471,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       };
 #pragma unroll 1
       for (int b = blockIdx.x; b < p.nbands; b += gridDim.x) {
-        const Band bd = band_at<V>(b, p);
+        const Band bd = band_at<V, L>(b, p);
 #pragma unroll 1
         for (int pair = 0; 2 * pair < bd.t1; ++pair)
 #pragma unroll 1
@@ -481,13 +531,26 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 #pragma unroll 1
     for (int b = blockIdx.x; b < p.nbands; b += gridDim.x) {
-      const Band bd = band_at<V>(b, p);
+      const Band bd = band_at<V, L>(b, p);
       named_sync(1, 256);  // both consumers are done reading the last band's q1
       {  // the zero border (the probe variants zero it as well: one code path)
         int4* z = reinterpret_cast<int4*>(q1);
         const int n16 = p.q1_rows * P / 16;
         for (int i = threadIdx.x; i < n16; i += 256) z[i] = make_int4(0, 0, 0, 0);
         named_sync(1, 256);
+      }
+      if constexpr (L == Layout::kFlat) {
+        // the pad rows of out of every frame whose last real position is in
+        // this band (one band a frame), written 0
+        const int last = (p.H - 1) * p.tw + p.W - 1;  // from the frame's first grid position
+        const int fgrid = p.hd * p.tw, lo = bd.m0 - last, hi = bd.m0 + bd.bm - 1 - last;
+        const int f0 = lo <= 0 ? 0 : (lo + fgrid - 1) / fgrid;
+        const int f1 = hi < 0 ? -1 : min(hi / fgrid, p.N - 1);
+        const int real = p.H * p.W, n16 = (p.frame_rows - real) * p.C / 16;
+        for (int f = f0; f <= f1; ++f) {
+          int4* z = reinterpret_cast<int4*>(p.out + ((size_t)f * p.frame_rows + real) * p.C);
+          for (int i = threadIdx.x; i < n16; i += 256) z[i] = make_int4(0, 0, 0, 0);
+        }
       }
 
       // ---- conv1 into the q1 tile
@@ -497,14 +560,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         const bool active = tile < bd.t1;
         int ti[2];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {  // compact row -> grid position -> tile position
+        for (int h = 0; h < 2; ++h) {  // x row -> grid position -> tile position
           const int m = tile * kTile + row_t + 8 * h;
           ti[h] = -1;
           if (m < bd.m1) {
             const int px = bd.p_lo + m;
-            const int f = px / (p.H * p.W), rem = px - f * p.H * p.W;
-            const int hh = rem / p.W, ww = rem - hh * p.W;
-            ti[h] = (f * p.hd + p.d + hh) * p.tw + p.d + ww - bd.q_lo;
+            const int fs = L == Layout::kFlat ? p.frame_rows : p.H * p.W;
+            const int f = px / fs, rem = px - f * fs;
+            if (L == Layout::kCompact || rem < p.H * p.W) {  // a flat pad row is dropped
+              const int hh = rem / p.W, ww = rem - hh * p.W;
+              ti[h] = (f * p.hd + p.d + hh) * p.tw + p.d + ww - bd.q_lo;
+            }
           }
         }
 #pragma unroll 1
@@ -536,14 +602,47 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll 1
           for (int nc = 0; nc < P / Wd::kNC2; ++nc) {
             auto& acc = acc_view<Wd::kNC2 / 2>(accs);
-            mma_steps<Wd::kStepsP>(
-                acc, 9 * Wd::kKP, active, ring_s, full_s, empty_s, stage, phase, stages, 0,
-                [&](int s, uint32_t, int k) {
-                  const int tap = s / Wd::kKP, kb = s - tap * Wd::kKP;
-                  const int off = (tap / 3) * dt * p.tw + (tap - (tap / 3) * 3) * dt;
-                  return wgmma_desc_planes(q1_s + (row0 + off) * 16 + (kb * 8 + 2 * k) * plane1,
-                                           plane1);
-                });
+            if constexpr (V == Variant::kIm2col) {
+              // this warpgroup's two patch slots, 16-byte planes of 64 positions
+              constexpr int kPlanes = 2 * Wd::kStepsP;  // planes in a slice of K
+              constexpr uint32_t kPlane = kTile * 16, kSlot = kPlanes * kPlane;
+              const uint32_t slots = smem_u32(patch) + w * 2 * kSlot;
+              mma_steps<Wd::kStepsP>(
+                  acc, 9 * Wd::kKP, active, ring_s, full_s, empty_s, stage, phase, stages, 0,
+                  [&](int s, uint32_t, int k) {
+                    return wgmma_desc_planes(slots + (s & 1) * kSlot + 2 * k * kPlane, kPlane);
+                  },
+                  [&](int s) {  // copy the stage's slice of the shifted tile into a slot
+                    const int tap = s / Wd::kKP, kb = s - tap * Wd::kKP;
+                    const int off = (tap / 3) * dt * p.tw + (tap - (tap / 3) * 3) * dt;
+                    const uint32_t src = q1_s + (row0 + off) * 16 + kb * 8 * plane1;
+                    const uint32_t dst = slots + (s & 1) * kSlot;
+#pragma unroll
+                    for (int u = 0; u < kPlanes * kTile / 128; ++u) {
+                      const int i = (threadIdx.x & 127) + 128 * u;
+                      const int pl = i / kTile, r = i - pl * kTile;
+                      uint32_t v0, v1, v2, v3;
+                      asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+                                   : "=r"(v0), "=r"(v1), "=r"(v2), "=r"(v3)
+                                   : "r"(src + pl * plane1 + r * 16));
+                      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(
+                                       dst + pl * kPlane + r * 16),
+                                   "r"(v0), "r"(v1), "r"(v2), "r"(v3)
+                                   : "memory");
+                    }
+                    fence_async_shared();
+                    named_sync(2 + w, 128);  // the slot complete for the warpgroup's wgmma
+                  });
+            } else {
+              mma_steps<Wd::kStepsP>(
+                  acc, 9 * Wd::kKP, active, ring_s, full_s, empty_s, stage, phase, stages, 0,
+                  [&](int s, uint32_t, int k) {
+                    const int tap = s / Wd::kKP, kb = s - tap * Wd::kKP;
+                    const int off = (tap / 3) * dt * p.tw + (tap - (tap / 3) * 3) * dt;
+                    return wgmma_desc_planes(q1_s + (row0 + off) * 16 + (kb * 8 + 2 * k) * plane1,
+                                             plane1);
+                  });
+            }
             if (active) store_fold(acc, q2_s, plane2, ti, nc * Wd::kNC2, col_t, p.a2, p.b2);
           }
           fence_async_shared();
@@ -556,7 +655,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int o = bd.m0 + m;
           const int r = o / p.tw, ww = o - r * p.tw;
           const int f = r / p.hd, hh = r - f * p.hd;
-          pix[h] = (m < bd.bm && ww < p.W && hh < p.H) ? (f * p.H + hh) * p.W + ww : -1;
+          const int px = L == Layout::kFlat ? f * p.frame_rows + hh * p.W + ww : (f * p.H + hh) * p.W + ww;
+          pix[h] = (m < bd.bm && ww < p.W && hh < p.H) ? px : -1;
         }
         const int8_t* xrow[2];  // the rows of x and out (row 0 of x for a dropped position)
         int8_t* orow[2];
@@ -634,23 +734,24 @@ struct Args {
   void* out;
   const void *a1, *b1, *a2, *b2, *a3, *b3, *sid;
   int n, h, w, c, p, d;
+  int frame_rows;  // rows a frame of x and out (h * w but in the flat layout)
   cudaStream_t stream;
 };
 
-template <int P, Variant V>
+template <int P, Variant V, Layout L>
 int launch_planes(const Args& a, const Plan& plan, int halo) {
-  const auto kernel = fused_bottleneck_kernel<P, V>;
+  const auto kernel = fused_bottleneck_kernel<P, V, L>;
   CUtensorMap maps[4];
   const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
-  const cuuint64_t x_dims[2] = {(cuuint64_t)a.c, (cuuint64_t)a.n * a.h * a.w};
+  const cuuint64_t x_dims[2] = {(cuuint64_t)a.c, (cuuint64_t)a.n * a.frame_rows};
   const cuuint64_t w1_dims[2] = {(cuuint64_t)a.c, (cuuint64_t)P};
   const cuuint64_t w2_dims[2] = {(cuuint64_t)P, (cuuint64_t)9 * P};
   const cuuint64_t w3_dims[2] = {(cuuint64_t)P, (cuuint64_t)a.c};
   const cuuint64_t c_stride[1] = {(cuuint64_t)a.c}, p_stride[1] = {(cuuint64_t)P};
   if (!encode_k_major(&maps[0], u8, 1, a.x, 2, x_dims, c_stride, 2 * kTile) ||
-      !encode_k_major(&maps[1], u8, 1, a.w1, 2, w1_dims, c_stride, Widths<P>::kNC1) ||
-      !encode_k_major(&maps[2], u8, 1, a.w2, 2, w2_dims, p_stride, Widths<P>::kNC2) ||
-      !encode_k_major(&maps[3], u8, 1, a.w3, 2, w3_dims, p_stride, Widths<P>::kNC3))
+      !encode_k_major(&maps[1], u8, 1, a.w1, 2, w1_dims, c_stride, Widths<P, V>::kNC1) ||
+      !encode_k_major(&maps[2], u8, 1, a.w2, 2, w2_dims, p_stride, Widths<P, V>::kNC2) ||
+      !encode_k_major(&maps[3], u8, 1, a.w3, 2, w3_dims, p_stride, Widths<P, V>::kNC3))
     return (int)cudaErrorInvalidValue;
 
   Params prm;
@@ -668,6 +769,7 @@ int launch_planes(const Args& a, const Plan& plan, int halo) {
   prm.W = a.w;
   prm.C = a.c;
   prm.d = a.d;
+  prm.frame_rows = a.frame_rows;
   prm.halo = halo;
   prm.tw = plan.tw;
   prm.hd = a.h + a.d;
@@ -689,39 +791,41 @@ int launch_planes(const Args& a, const Plan& plan, int halo) {
   return (int)cudaGetLastError();
 }
 
-template <Variant V>
+template <Variant V, Layout L>
 int launch(const Args& a) {
   if (a.n <= 0 || a.h <= 0 || a.w <= 0) return (int)cudaSuccess;
   Plan plan;
-  if (a.c <= 0 || a.c % kTileKBytes || !make_plan(a.w, a.p, a.d, &plan))
+  if (a.c <= 0 || a.c % kTileKBytes || a.frame_rows < a.h * a.w ||
+      !make_plan(a.w, a.p, a.d, V == Variant::kIm2col, &plan))
     return (int)cudaErrorInvalidValue;
-  // grid positions and compact rows in 32-bit ints, with a band of slack
+  // grid positions and x rows in 32-bit ints, with a band of slack
   const long long total = (long long)a.n * (a.h + a.d) * plan.tw;
-  if (total + (long long)(plan.tiles + 2) * kTile + 2LL * a.d * plan.tw > 0x7fffffffLL)
+  if (total + (long long)(plan.tiles + 2) * kTile + 2LL * a.d * plan.tw > 0x7fffffffLL ||
+      (long long)(a.n + 1) * a.frame_rows > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  for (const void* ptr : {a.x, a.w1, a.w2, a.w3})
+  for (const void* ptr : {a.x, a.w1, a.w2, a.w3, (const void*)a.out})
     if ((uintptr_t)ptr % 16) return (int)cudaErrorInvalidValue;  // TMA takes 16-byte aligned bases
   // kNoShift runs K2's own compiled kernel with the halo and the tap shifts
   // off, so the two differ only in that work
-  constexpr Variant K = V == Variant::kConvOnly ? Variant::kConvOnly : Variant::kFull;
-  const int halo = V == Variant::kFull;
+  constexpr Variant K = V == Variant::kNoShift ? Variant::kFull : V;
+  const int halo = V == Variant::kFull || V == Variant::kIm2col;
   switch (a.p) {
-    case 64: return launch_planes<64, K>(a, plan, halo);
-    case 128: return launch_planes<128, K>(a, plan, halo);
-    case 256: return launch_planes<256, K>(a, plan, halo);
-    default: return launch_planes<512, K>(a, plan, halo);
+    case 64: return launch_planes<64, K, L>(a, plan, halo);
+    case 128: return launch_planes<128, K, L>(a, plan, halo);
+    case 256: return launch_planes<256, K, L>(a, plan, halo);
+    default: return launch_planes<512, K, L>(a, plan, halo);
   }
 }
 
 }  // namespace
 
-// The plan of a block for width w, p mid channels and dilation d: writes
-// {padded width, ring stages, tiles a band, q1 tile positions} to out and
-// returns the dynamic shared memory in bytes; -1 for a shape the kernel does
-// not take.
-extern "C" int fused_bottleneck_plan(int w, int p, int d, int* out) {
+// The plan of a block for width w, p mid channels and dilation d (im2col: the
+// variant with a patch): writes {padded width, ring stages, tiles a band, q1
+// tile positions} to out and returns the dynamic shared memory in bytes; -1
+// for a shape the kernel does not take.
+extern "C" int fused_bottleneck_plan(int w, int p, int d, int im2col, int* out) {
   Plan plan;
-  if (!make_plan(w, p, d, &plan)) return -1;
+  if (!make_plan(w, p, d, im2col != 0, &plan)) return -1;
   out[0] = plan.tw;
   out[1] = plan.stages;
   out[2] = plan.tiles;
@@ -734,16 +838,30 @@ extern "C" int fused_bottleneck_plan(int w, int p, int d, int* out) {
 // nothing; returns cudaGetLastError() of the launch, or cudaErrorInvalidValue
 // for a shape the kernel does not take (P not 64, 128, 256 or 512, C not a
 // multiple of 128, a band that does not fit shared memory, a base that is not
-// 16-byte aligned). fused_bottleneck_s8 is K2.
+// 16-byte aligned). fused_bottleneck_s8 is K2 on (N, H, W, C); the flat
+// entries (P5) take (N, HWP, C) with HWP >= H*W rows a frame, dilation 1:
+// their ints are (n, hwp, h, w, c, p).
 #define FUSED_BOTTLENECK_ENTRY(name, variant)                                                   \
   extern "C" int name(const void* x, void* out, const void* w1, const void* w2, const void* w3, \
                       const void* a1, const void* b1, const void* a2, const void* b2,           \
                       const void* a3, const void* b3, const void* sid, int n, int h, int w,     \
                       int c, int p, int d, void* stream) {                                      \
-    const Args args{x,  w1, w2, w3, out, a1, b1, a2, b2, a3, b3, sid,                           \
-                    n,  h,  w,  c,  p,   d,  static_cast<cudaStream_t>(stream)};                \
-    return launch<variant>(args);                                                               \
+    const Args args{x, w1, w2, w3, out, a1, b1, a2, b2, a3, b3, sid, n, h, w, c, p, d,          \
+                    h * w, static_cast<cudaStream_t>(stream)};                                  \
+    return launch<variant, Layout::kCompact>(args);                                             \
   }
 FUSED_BOTTLENECK_ENTRY(fused_bottleneck_s8, Variant::kFull)
 FUSED_BOTTLENECK_ENTRY(fused_bottleneck_noshift_s8, Variant::kNoShift)
 FUSED_BOTTLENECK_ENTRY(fused_bottleneck_convonly_s8, Variant::kConvOnly)
+
+#define FUSED_BOTTLENECK_FLAT_ENTRY(name, variant)                                              \
+  extern "C" int name(const void* x, void* out, const void* w1, const void* w2, const void* w3, \
+                      const void* a1, const void* b1, const void* a2, const void* b2,           \
+                      const void* a3, const void* b3, const void* sid, int n, int hwp, int h,   \
+                      int w, int c, int p, void* stream) {                                      \
+    const Args args{x, w1, w2, w3, out, a1, b1, a2, b2, a3, b3, sid, n, h, w, c, p, 1,          \
+                    hwp, static_cast<cudaStream_t>(stream)};                                    \
+    return launch<variant, Layout::kFlat>(args);                                                \
+  }
+FUSED_BOTTLENECK_FLAT_ENTRY(fused_bottleneck_flat_hwpad_s8, Variant::kFull)
+FUSED_BOTTLENECK_FLAT_ENTRY(fused_bottleneck_flat_im2col_s8, Variant::kIm2col)

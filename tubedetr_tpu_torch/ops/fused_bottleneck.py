@@ -27,6 +27,13 @@ band needs. The kernel computes the same plan (``fused_bottleneck_plan``);
 in plain PyTorch. A width whose q1 tile does not fit shared memory runs in
 column strips that overlap by ``d`` columns (``column_strips``), one launch
 each.
+
+The same kernel runs probe P5 (``ops/probe_bottleneck.py:flat_bottleneck``)
+on frames stored ``frame_rows`` apart (``H*W`` real rows, then pad rows):
+``band_span``, ``compact_to_grid`` and ``grid_to_compact`` take that stride,
+a pad row maps to no grid position (-1), and ``pad_frames_of_band`` names the
+frames whose pad rows of ``out`` a band writes 0. Its ``im2col`` variant adds
+a patch buffer to the plan (``tile_plan(..., im2col=True)``).
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ RING_SLOT = 256 * 128  # one ring stage: 256 rows x 128 bytes of K
 NC1_MAX = 128  # conv1's output channels a pass (beside 128 rows of x in a stage)
 MAX_STAGES, MIN_STAGES, MAX_TILES = 3, 2, 16
 SMEM_ALIGN, SMEM_BARRIERS = 1024, 128
+PATCH_SLOTS = 4  # im2col: two slots of 64 positions x one slice of K a consumer warpgroup
 
 
 def quantize_weight(kernel: torch.Tensor):
@@ -145,6 +153,7 @@ class TilePlan:
     dilation: int
     stages: int  # ring stages of RING_SLOT bytes
     tiles: int  # 64-position wgmma tiles a band
+    im2col: bool = False  # P5's im2col variant: the patch slots in shared memory
 
     @property
     def tw(self) -> int:
@@ -168,7 +177,7 @@ class TilePlan:
 
     @property
     def smem_bytes(self) -> int:
-        return _smem(self.p, self.stages, self.tiles, self.q1_rows)
+        return _smem(self.p, self.stages, self.tiles, self.q1_rows, self.im2col)
 
     @property
     def band_rows(self) -> float:
@@ -185,31 +194,37 @@ def _q1_rows(tiles: int, tw: int, d: int) -> int:
     return (TILE * tiles + 2 * d * tw + 2 * d + 7) // 8 * 8
 
 
-def _smem(p: int, stages: int, tiles: int, q1_rows: int) -> int:
+def _smem(p: int, stages: int, tiles: int, q1_rows: int, im2col: bool = False) -> int:
     """Alignment slack, the ring, its barriers, the q1 tile, one 64 x P q2
-    tile per busy consumer warpgroup."""
-    return SMEM_ALIGN + stages * RING_SLOT + SMEM_BARRIERS + q1_rows * p + TILE * min(tiles, 2) * p
+    tile per busy consumer warpgroup; for im2col the patch slots, each 64
+    positions of one 128-byte slice of K (64 bytes at P=64)."""
+    patch = PATCH_SLOTS * TILE * min(p, 128) if im2col else 0
+    return (SMEM_ALIGN + stages * RING_SLOT + SMEM_BARRIERS + q1_rows * p + TILE * min(tiles, 2) * p
+            + patch)
 
 
-def _tiles_fitting(w: int, p: int, d: int, stages: int) -> int:
+def _tiles_fitting(w: int, p: int, d: int, stages: int, im2col: bool) -> int:
     tw = w + 2 * d
-    fits = [t for t in range(1, MAX_TILES + 1) if _smem(p, stages, t, _q1_rows(t, tw, d)) <= SMEM_LIMIT]
+    fits = [t for t in range(1, MAX_TILES + 1)
+            if _smem(p, stages, t, _q1_rows(t, tw, d), im2col) <= SMEM_LIMIT]
     return max(fits, default=0)
 
 
-def tile_plan(w: int, p: int, dilation: int):
-    """K2's plan for a width, mid channels and dilation, as the kernel makes
-    it (``make_plan`` in ``csrc/fused_bottleneck.cu``): 3 ring stages if that
-    leaves a band of at least 4 tiles, else 2 stages and the most tiles that
-    fit. None for a shape the kernel does not take."""
+def tile_plan(w: int, p: int, dilation: int, im2col: bool = False):
+    """K2's plan for a width, mid channels and dilation (``im2col``: P5's
+    variant, with its patch), as the kernel makes it (``make_plan`` in
+    ``csrc/fused_bottleneck.cu``): 3 ring stages if that leaves a band of at
+    least 4 tiles, else 2 stages and the most tiles that fit. None for a
+    shape the kernel does not take. The flat layout of P5 does not change
+    it: the q1 tile spans grid positions whatever the frame stride of x."""
     if p not in KERNEL_PLANES or w < 1 or dilation < 1 or w > 1 << 20 or dilation > 1 << 20:
         return None
     for stages in range(MAX_STAGES, MIN_STAGES, -1):
-        tiles = _tiles_fitting(w, p, dilation, stages)
+        tiles = _tiles_fitting(w, p, dilation, stages, im2col)
         if tiles >= 4:
-            return TilePlan(w, p, dilation, stages, tiles)
-    tiles = _tiles_fitting(w, p, dilation, MIN_STAGES)
-    return TilePlan(w, p, dilation, MIN_STAGES, tiles) if tiles else None
+            return TilePlan(w, p, dilation, stages, tiles, im2col)
+    tiles = _tiles_fitting(w, p, dilation, MIN_STAGES, im2col)
+    return TilePlan(w, p, dilation, MIN_STAGES, tiles, im2col) if tiles else None
 
 
 def grid_positions(n: int, h: int, plan: TilePlan) -> int:
@@ -233,37 +248,63 @@ def real_before(q: int, n: int, h: int, plan: TilePlan) -> int:
     return before + min(max(col - d, 0), w) if hh < h else before
 
 
-def compact_to_grid(px, h: int, plan: TilePlan):
-    """q1 grid index of compact pixel ``px`` (row of ``xq`` as ``(N*H*W, C)``)."""
+def compact_to_grid(px, h: int, plan: TilePlan, frame_rows=None):
+    """q1 grid index of row ``px`` of ``xq`` as ``(N*frame_rows, C)``
+    (``frame_rows`` is ``H*W`` unless the frames are stored further apart),
+    or -1 for a pad row past a frame's ``H*W`` real rows."""
     d, w = plan.dilation, plan.w
-    f, rem = px // (h * w), px % (h * w)
-    return (f * (h + d) + d + rem // w) * plan.tw + d + rem % w
+    fs = frame_rows or h * w
+    f, rem = px // fs, px % fs
+    q = (f * (h + d) + d + rem // w) * plan.tw + d + rem % w
+    if torch.is_tensor(px):
+        return torch.where(rem < h * w, q, torch.full_like(q, -1))
+    return q if rem < h * w else -1
 
 
-def grid_to_compact(o, h: int, plan: TilePlan):
-    """Compact pixel of output grid position ``o``, or -1 on a padding column
-    or separator row."""
+def grid_to_compact(o, h: int, plan: TilePlan, frame_rows=None):
+    """Row of ``xq`` (frames ``frame_rows`` apart, ``H*W`` by default) of
+    output grid position ``o``, or -1 on a padding column or separator row."""
     d, w, hd = plan.dilation, plan.w, h + plan.dilation
     r, ww = o // plan.tw, o % plan.tw
     f, hh = r // hd, r % hd
-    px = (f * h + hh) * w + ww
+    px = f * (frame_rows or h * w) + hh * w + ww
     if torch.is_tensor(o):
         return torch.where((ww < w) & (hh < h), px, torch.full_like(px, -1))
     return px if ww < w and hh < h else -1
 
 
-def band_span(plan: TilePlan, n: int, h: int, b: int, variant: str = "full"):
+def flat_row(c: int, h: int, w: int, frame_rows) -> int:
+    """Row of the ``c``-th real pixel when frames are ``frame_rows`` apart."""
+    return c if not frame_rows else c // (h * w) * frame_rows + c % (h * w)
+
+
+def band_span(plan: TilePlan, n: int, h: int, b: int, variant: str = "full", frame_rows=None):
     """Band ``b``: ``(m0, bm, q_lo, p_lo, p_hi)``: its first output grid
     position, its positions, the q1 grid index of its q1 tile's first
-    position, and the compact rows ``[p_lo, p_hi)`` conv1 runs over (the
+    position, and the rows ``[p_lo, p_hi)`` of ``xq`` conv1 runs over (the
     band and its halo of ``centre`` each side; ``noshift`` and ``convonly``:
-    the band alone, the tile starting at the centre)."""
+    the band alone, the tile starting at the centre). With ``frame_rows``
+    (the flat layout) the rows run from the first real pixel to the last,
+    the pad rows between frames included."""
     m0 = b * plan.band
     bm = min(plan.band, grid_positions(n, h, plan) - m0)
-    full = variant == "full"
-    q_lo = m0 if full else m0 + plan.centre
-    ext = bm + 2 * plan.centre if full else bm
-    return m0, bm, q_lo, real_before(q_lo, n, h, plan), real_before(q_lo + ext, n, h, plan)
+    halo = variant in ("full", "im2col")
+    q_lo = m0 if halo else m0 + plan.centre
+    ext = bm + 2 * plan.centre if halo else bm
+    c_lo, c_hi = real_before(q_lo, n, h, plan), real_before(q_lo + ext, n, h, plan)
+    p_lo = flat_row(c_lo, h, plan.w, frame_rows)
+    p_hi = flat_row(c_hi - 1, h, plan.w, frame_rows) + 1 if c_hi > c_lo else p_lo
+    return m0, bm, q_lo, p_lo, p_hi
+
+
+def pad_frames_of_band(plan: TilePlan, n: int, h: int, b: int):
+    """The frames whose pad rows of ``out`` band ``b`` writes 0 in the flat
+    layout: those whose last real pixel's output grid position is in the
+    band (one band a frame)."""
+    m0, bm, _, _, _ = band_span(plan, n, h, b)
+    last = (h - 1) * plan.tw + plan.w - 1
+    fgrid = (h + plan.dilation) * plan.tw
+    return [f for f in range(n) if m0 <= f * fgrid + last < m0 + bm]
 
 
 def n_bands(plan: TilePlan, n: int, h: int) -> int:
@@ -321,15 +362,15 @@ def in_strips(xq: torch.Tensor, strips, block) -> torch.Tensor:
     return out
 
 
-def kernel_plan(w: int, p: int, dilation: int):
+def kernel_plan(w: int, p: int, dilation: int, im2col: bool = False):
     """The plan the built kernel makes (``fused_bottleneck_plan``), as
     ``(tw, stages, tiles, q1_rows, smem_bytes)``, or None: what a card test
     holds ``tile_plan`` to."""
     fn = _cuda_build.load("fused_bottleneck").fused_bottleneck_plan
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 4)()
-    smem = fn(w, p, dilation, out)
+    smem = fn(w, p, dilation, int(im2col), out)
     return None if smem < 0 else (*out, smem)
 
 
@@ -388,6 +429,30 @@ def check_stream(xq: torch.Tensor, fold: BottleneckFold, layout: str = "N, H, W"
         check_fold(fold, xq.device)
 
 
+def check_kernel(xq: torch.Tensor, fold: BottleneckFold, n: int, h: int, plan) -> None:
+    """Raise on what K2's kernel does not take on the card: its channel
+    counts, a plan that does not fit (``plan`` None), 32-bit grid positions
+    and rows, bases that are not 16-byte aligned (TMA)."""
+    c, p = fold.channels
+    if p not in KERNEL_PLANES or c % CHANNEL_BYTES:
+        raise ValueError(
+            f"K2 takes channel counts that are multiples of 64 with P in {KERNEL_PLANES} and "
+            f"C a multiple of {CHANNEL_BYTES}; got C={c}, P={p}"
+        )
+    if plan is None:
+        raise ValueError(
+            f"K2's q1 tile for a column with {p} channels does not fit {SMEM_LIMIT} bytes of "
+            f"shared memory beside its ring"
+        )
+    frame_rows = xq.numel() // (c * n) if n else 0
+    if (grid_positions(n, h, plan) + 2 * plan.band + 2 * plan.centre >= 2**31
+            or (n + 1) * frame_rows >= 2**31):
+        raise ValueError(f"{n} frames of height {h} exceed the kernel's 32-bit grid positions")
+    for name, t in (("xq", xq), ("fold.w1", fold.w1), ("fold.w2", fold.w2), ("fold.w3", fold.w3)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned (TMA)")
+
+
 def check_input(xq: torch.Tensor, fold: BottleneckFold, dilation: int) -> None:
     """Raise on a stream, fold or dilation that K2 does not take: on the CPU
     (its plain version) or on the card (the kernel)."""
@@ -396,25 +461,11 @@ def check_input(xq: torch.Tensor, fold: BottleneckFold, dilation: int) -> None:
         raise ValueError(f"dilation must be >= 1, got {dilation}")
     if xq.device.type == "cpu":
         return
-    c, p = fold.channels
+    _, p = fold.channels
     n, h, w, _ = xq.shape
-    if p not in KERNEL_PLANES or c % CHANNEL_BYTES:
-        raise ValueError(
-            f"K2 takes channel counts that are multiples of 64 with P in {KERNEL_PLANES} and "
-            f"C a multiple of {CHANNEL_BYTES}; got C={c}, P={p}"
-        )
-    strips = column_strips(w, p, dilation)
-    if strips is None:
-        raise ValueError(
-            f"K2's q1 tile for a column with {p} channels at dilation {dilation} does not fit "
-            f"{SMEM_LIMIT} bytes of shared memory beside its ring"
-        )
-    plan = tile_plan(max(s1 - s0 for s0, s1, _, _ in strips), p, dilation)
-    if grid_positions(n, h, plan) + 2 * plan.band + 2 * plan.centre >= 2**31:
-        raise ValueError(f"{n} frames of {h}x{w} exceed the kernel's 32-bit grid positions")
-    for name, t in (("xq", xq), ("fold.w1", fold.w1), ("fold.w2", fold.w2), ("fold.w3", fold.w3)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start 16-byte aligned (TMA)")
+    strips = column_strips(w, p, dilation)  # None: not one column fits, or P is not built
+    check_kernel(xq, fold, n, h,
+                 strips and tile_plan(max(s1 - s0 for s0, s1, _, _ in strips), p, dilation))
 
 
 def fused_bottleneck_block(xq: torch.Tensor, fold: BottleneckFold, dilation: int = 1):

@@ -6,10 +6,11 @@
   band only and reads the centre pixel for all nine taps; ``convonly`` sets
   ``q2 = q1`` and skips conv2.
 * ``flat_bottleneck`` (P5, ``run_flat``): K2's function on frames padded to
-  a flat row stride, ``(N, HWP, C)`` with ``H*W`` real rows a frame, by
-  ``csrc/probe_flat_bottleneck.cu``: ``hwpad`` (nine accumulated shifted
-  products) or ``im2col`` (one K=9P product over a patch in shared memory).
-  Pad rows come out 0.
+  a flat row stride, ``(N, HWP, C)`` with ``H*W`` real rows a frame, by K2's
+  kernel in its flat layout (``csrc/fused_bottleneck.cu``, ``Layout::kFlat``):
+  ``hwpad`` (K2's nine accumulated tap products) or ``im2col`` (conv2 reads
+  a patch copied out of the q1 tile a slice of K at a time: the K=9P
+  product over a patch). Pad rows come out 0.
 
 ``probe_fold`` builds the probe's ``BottleneckFold`` from its raw int8
 weights: a=1e-4, b=0 and ``sid = float32(0.01)`` unless told otherwise. A
@@ -23,16 +24,17 @@ from __future__ import annotations
 import torch
 
 from tubedetr_tpu_torch.ops.fused_bottleneck import (
-    SMEM_LIMIT,
     BottleneckFold,
     _requant,
     check_input,
+    check_kernel,
     check_stream,
     column_strips,
     fused_bottleneck_plain,
     in_strips,
     launch_fold_kernel,
     launch_k2,
+    tile_plan,
 )
 from tubedetr_tpu_torch.ops.int8_conv import int_mm
 
@@ -42,11 +44,9 @@ _ENTRY = {
     "full": "fused_bottleneck_s8",
     "noshift": "fused_bottleneck_noshift_s8",
     "convonly": "fused_bottleneck_convonly_s8",
+    "hwpad": "fused_bottleneck_flat_hwpad_s8",
+    "im2col": "fused_bottleneck_flat_im2col_s8",
 }
-# rows_per_block<V>() of csrc/probe_flat_bottleneck.cu; a card test holds
-# flat_smem_bytes to the library's own count
-FLAT_ROWS_PER_BLOCK = {"hwpad": 128, "im2col": 64}
-SMEM_PAD = 16  # bytes added to each row of P5's shared-memory tiles
 
 
 def probe_fold(w1, w2, w3, a=(1e-4, 1e-4, 1e-4), b=(0.0, 0.0, 0.0), sid=0.01) -> BottleneckFold:
@@ -114,16 +114,6 @@ def bottleneck_variant(xq: torch.Tensor, fold: BottleneckFold, variant: str) -> 
 bottleneck_variant.launches = 0
 
 
-def flat_smem_bytes(variant: str, w: int, p: int) -> int:
-    """Shared memory of one P5 block: the q1 tile (the block's rows and a
-    halo of ``w + 1`` rows each side) with a zero row, q2, and for
-    ``im2col`` the ``(rows, 9P)`` patch; each row padded by 16 bytes."""
-    rb = FLAT_ROWS_PER_BLOCK[variant]
-    ps = p + SMEM_PAD
-    extra = rb * (9 * p + SMEM_PAD) if variant == "im2col" else 0
-    return (rb + 2 * (w + 1) + 1 + rb) * ps + extra
-
-
 def flat_bottleneck_plain(xq: torch.Tensor, fold: BottleneckFold, h: int, w: int) -> torch.Tensor:
     """Plain version of P5: K2's plain version on the ``h*w`` real rows of each
     frame of ``(N, HWP, C)``, the pad rows 0."""
@@ -136,7 +126,9 @@ def flat_bottleneck_plain(xq: torch.Tensor, fold: BottleneckFold, h: int, w: int
 
 def flat_bottleneck(xq: torch.Tensor, fold: BottleneckFold, variant: str, h: int, w: int) -> torch.Tensor:
     """P5: K2's function on ``(N, HWP, C)`` int8 frames of ``h*w`` real rows
-    followed by at least ``w + 1`` pad rows; the pad rows come out 0."""
+    followed by at least ``w + 1`` pad rows (the script's layout: its taps
+    read the pad rows as the vertical border); the pad rows come out 0.
+    Dilation 1, one launch."""
     if variant not in FLAT_VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; expected one of {FLAT_VARIANTS}")
     check_stream(xq, fold, "N, HWP")
@@ -149,14 +141,10 @@ def flat_bottleneck(xq: torch.Tensor, fold: BottleneckFold, variant: str, h: int
         return flat_bottleneck_plain(xq, fold, h, w)
     n, hwp, c = xq.shape
     p = fold.w1.shape[0]
-    if flat_smem_bytes(variant, w, p) > SMEM_LIMIT:
-        raise ValueError(
-            f"P5 {variant} at width {w} with {p} channels needs "
-            f"{flat_smem_bytes(variant, w, p)} bytes of shared memory, more than {SMEM_LIMIT}"
-        )
-    out = torch.empty_like(xq)
-    launch_fold_kernel("probe_flat_bottleneck", f"flat_bottleneck_{variant}_s8", xq, out, fold,
-                       (n, hwp, h, w, c, p))
+    # no column strips: a width whose q1 tile does not fit raises
+    check_kernel(xq, fold, n, h, tile_plan(w, p, 1, im2col=variant == "im2col"))
+    out = torch.empty_like(xq)  # the kernel writes every row, the pad rows 0
+    launch_fold_kernel("fused_bottleneck", _ENTRY[variant], xq, out, fold, (n, hwp, h, w, c, p))
     flat_bottleneck.launches += 1
     return out
 

@@ -12,11 +12,11 @@ P = 256; a = 1e-4, b = 0, residual ``x * 0.01``):
   of Mosaic's lowering; K2 runs on bands of its padded grid whatever the
   frames are, so it runs ``full``'s kernel;
 * ``hwpad``, ``im2col`` (P5): the same function on frames padded to 512
-  rows, nine shifted products or one K=9P product.
+  rows, by K2's kernel in its flat layout: nine shifted products, or one
+  K=9P product over a patch copied a slice at a time.
 
 F (frames a TPU grid step) has no counterpart on the card: a block walks
-bands of grid positions (P4) or runs of flat rows (P5) whatever F is. It is
-accepted and printed. One line per spec: ms and TOP/s over the script's
+bands of grid positions whatever F is. It is accepted and printed. One line per spec: ms and TOP/s over the script's
 operation count (the whole block's, for every variant, on the 484 real
 rows); a spec whose kernel already ran in this call names that spec as
 ``same_kernel_as``.

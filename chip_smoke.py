@@ -26,7 +26,21 @@ line:
    just before it and read just after;
 5. small requests through the pipeline on the card and on the CPU (the
    plain path), float and int8_static + fused, which must agree;
-6. the probes P1-P5 (``tubedetr_tpu_torch/probes``): both entry points at
+6. the serving path, the port's HTTP ``Server`` (``apps/serve.py``) at full
+   width on the card: the int8_static + K2 model with ``serve_max_batch=2``
+   and a 50 ms window behind a ``ThreadingHTTPServer`` on a local port; a
+   cold request (calibration inside), two requests at once from two client
+   threads (one forward), one request alone, each answer held to
+   ``ground_many`` called directly on the same requests; ``/healthz``,
+   ``/stats``, a video outside the root (403), and ``drain`` (503 after).
+   K1 once a request and K2 29 times a backbone pass, counted over the HTTP
+   requests alone;
+7. the other inference configurations: each ``fast_mode`` (gating,
+   transformer, pool, noslow) and ``num_queries=3`` on the small config,
+   card against CPU on the same frames (the selectors' winners equal), the
+   tubes scored by ``VIoUEvaluator`` on both; ``fast_mode="transformer"``
+   at full width in bf16, one warm B=2 call;
+8. the probes P1-P5 (``tubedetr_tpu_torch/probes``): both entry points at
    the scripts' full shapes with their launch counts zeroed just before and
    read just after, each kernel held exactly to its plain version, and
    noshift and convonly timed beside K2 at layer3's serving shape. They run
@@ -36,8 +50,9 @@ line:
    build log; a spill or an ignored ``setmaxnreg`` fails), for P1-P3 the
    wrapper's host microseconds a call.
 
-Then one ``kernels`` JSON line, the ``nvidia-smi`` line again, and, last, the
-``ok`` JSON line. There is no CPU path: without a card the script exits 2.
+Then the script's seconds, one ``kernels`` JSON line (each kernel's
+``launches`` counted on phase 6's path), the ``nvidia-smi`` line again, and,
+last, the ``ok`` JSON line. There is no CPU path: without a card the script exits 2.
 """
 
 from __future__ import annotations
@@ -89,6 +104,7 @@ SMALL_INT8_ATOL = {"pred_boxes": 1e-3, "pred_sted": 1e-3}
 PROBE_SPECS = ("full:2", "noshift:2", "dot2d:2", "convonly:2", "noshift:8", "hwpad:2", "im2col:2")
 PROBE_SERVING = K2_STAGES["layer3"][:5]
 PROBE_SERVING_SEED = 22
+WAIT_S = 600.0  # an HTTP request of the serve phase, the cold one's calibration included
 
 
 def fail(msg: str) -> None:
@@ -670,7 +686,7 @@ def full_width_cfg(dtype: str, **extra):
     )
 
 
-def check_results(label, results, outputs):
+def check_tubes(label, results):
     import numpy as np
 
     for r in results:
@@ -680,6 +696,12 @@ def check_results(label, results, outputs):
         b = np.asarray(r["boxes"])
         if b.shape != (K1_SHAPE[0], 4) or not np.isfinite(b).all():
             fail(f"{label}: pixel boxes {b.shape}, finite={np.isfinite(b).all()}")
+
+
+def check_results(label, results, outputs):
+    import numpy as np
+
+    check_tubes(label, results)
     pb = outputs["pred_boxes"]
     if pb.shape != (2, K1_SHAPE[0], 4) or not np.isfinite(pb).all():
         fail(f"{label}: pred_boxes {pb.shape}, finite={np.isfinite(pb).all()}")
@@ -868,6 +890,309 @@ def phase_small_int8_agreement(workdir: str):
             fail(f"small int8 request: {k} differs between card and CPU by {d}")
 
 
+def http_json(url: str, timeout: float = WAIT_S):
+    """(status, parsed JSON or text) of a GET, HTTP errors included."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        resp = urllib.request.urlopen(url, timeout=timeout)
+        code, body = resp.status, resp.read()
+    except urllib.error.HTTPError as err:
+        code, body = err.code, err.read()
+    try:
+        return code, json.loads(body)
+    except ValueError:
+        return code, body.decode(errors="replace")
+
+
+def phase_serve(workdir: str):
+    """The port's HTTP ``Server`` at full width on the card: the headline
+    int8_static + K2 model, ``serve_max_batch=2``, a 50 ms window, the two
+    360p clips of phase 4 under the video root. One cold request
+    (calibration inside), two requests at once from two client threads, one
+    request alone; then the same requests through ``ground_many`` directly,
+    /healthz, /stats, a request outside the root, and drain. Returns the
+    launch counts of the HTTP requests (counts zeroed just before the
+    server is built, read once its dispatcher is idle)."""
+    import threading
+    import urllib.parse
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+
+    from tubedetr_tpu_torch.apps.serve import Server, make_handler
+    from tubedetr_tpu_torch.ops.fused_bottleneck import fused_bottleneck_block
+    from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize
+
+    cfg = full_width_cfg("bfloat16", backbone_quant="int8_static", fused_bottleneck=True).replace(
+        serve_max_batch=2, serve_batch_window_ms=50.0, output_dir=os.path.join(workdir, "serve_out"))
+    reqs = [("request0.npy", "a man in a red shirt rides a horse"),
+            ("request1.npy", "the dog runs across the grass"),
+            ("request1.npy", "a child throws a ball")]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resize_normalize.launches = 0
+    fused_bottleneck_block.launches = 0
+    t0 = time.perf_counter()
+    server = Server(cfg, video_root=workdir)  # cfg.device: the card
+    build_s = time.perf_counter() - t0
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server))
+    listener = threading.Thread(target=httpd.serve_forever, daemon=True)
+    listener.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def stvg(video, question):
+        q = urllib.parse.urlencode({"video": video, "question": question, "format": "json"})
+        return http_json(f"{url}/stvg?{q}")
+
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t
+
+    # the dispatcher's own seconds a batch, so the HTTP + queue + window
+    # share of a request's wall time shows apart from its ground_many
+    dispatched = []
+    ground_many = server.pipeline.ground_many
+
+    def timed_ground_many(batch, **kw):
+        t = time.perf_counter()
+        try:
+            return ground_many(batch, **kw)
+        finally:
+            dispatched.append((len(batch), time.perf_counter() - t))
+
+    server.pipeline.ground_many = timed_ground_many
+    answers = {}
+    try:
+        answers["cold"], cold_s = timed(lambda: stvg(*reqs[2]))
+        forwards = server.pipeline.forwards
+        start = threading.Barrier(3)
+
+        def client(i):
+            start.wait()
+            answers[i] = stvg(*reqs[i])
+
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+        for th in clients:
+            th.start()
+        start.wait()
+        t = time.perf_counter()
+        for th in clients:
+            th.join(timeout=WAIT_S)
+        pair_s = time.perf_counter() - t
+        pair_forwards = server.pipeline.forwards - forwards
+        answers["lone"], lone_s = timed(lambda: stvg(*reqs[2]))
+        for key, (code, body) in answers.items():
+            if code != 200:
+                fail(f"serve: request {key} answered {code}: {body}")
+        launches = {"resize_normalize": resize_normalize.launches,
+                    "fused_bottleneck": fused_bottleneck_block.launches}
+        n_forwards = server.pipeline.forwards
+
+        # the same requests through ground_many directly, as the dispatcher
+        # calls it (rendering into the output dir included)
+        pipe = server.pipeline
+        pipe.ground_many = ground_many
+        direct = lambda rs, tag: pipe.ground_many(  # noqa: E731
+            [(os.path.join(workdir, v), q, -1.0, -1.0) for v, q in rs],
+            out_dir=server.out_dir, tags=[f"-direct{tag}{i}" for i in range(len(rs))])
+        pair_direct, pair_direct_s = synced(lambda: direct(reqs[:2], "p"))
+        (lone_direct,), lone_direct_s = synced(lambda: direct(reqs[2:], "l"))
+        size = np.array([K1_SHAPE[2], K1_SHAPE[1]] * 2, np.float64)
+        max_box_err = 0.0
+        for key, ref in ((0, pair_direct[0]), (1, pair_direct[1]), ("lone", lone_direct),
+                         ("cold", lone_direct)):
+            got = answers[key][1]
+            if got["sted"] != ref["sted"]:
+                fail(f"serve: request {key} segment {got['sted']} is not ground_many's {ref['sted']}")
+            err = float(np.abs(np.asarray(got["boxes"]) / size - np.asarray(ref["boxes"]) / size).max())
+            max_box_err = max(max_box_err, err)
+            if not err <= 1e-4:
+                fail(f"serve: request {key} boxes differ from ground_many's by {err}")
+        check_tubes("serve", [pair_direct[0], pair_direct[1], lone_direct])
+
+        health, stats = http_json(f"{url}/healthz"), http_json(f"{url}/stats")
+        outside = stvg("../request0.npy", "outside the root")
+        drained = server.drain(timeout=60)
+        after_health = http_json(f"{url}/healthz")
+        after_stvg = stvg(*reqs[2])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        listener.join(timeout=30)
+    out = {
+        "build_s": build_s,
+        "cold_http_s": cold_s, "cold_calibration_s": pipe.calibration_s,
+        "warm_http_pair_s": pair_s, "warm_ground_many_pair_s": pair_direct_s,
+        "warm_http_lone_s": lone_s, "warm_ground_many_lone_s": lone_direct_s,
+        "dispatched_batches_s": [[n, sec] for n, sec in dispatched],
+        "http_queue_window_pair_s": pair_s - dispatched[1][1],
+        "http_queue_window_lone_s": lone_s - dispatched[2][1],
+        "pair_forwards": pair_forwards, "forwards": n_forwards, "launches": launches,
+        "max_box_err_vs_ground_many": max_box_err,
+        "segments": [answers[k][1]["sted"] for k in ("cold", 0, 1, "lone")],
+        "healthz": health[0], "stats": {k: stats[1][k] for k in ("requests_ok", "requests_failed")},
+        "outside_root": outside[0], "drained": drained,
+        "after_drain": {"healthz": list(after_health), "stvg": after_stvg[0]},
+        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    print(f"[serve] {json.dumps(out)}", flush=True)
+    if pair_forwards != 1 or [n for n, _ in dispatched] != [1, 2, 1]:
+        fail(f"serve: the two concurrent requests ran as {pair_forwards} forwards, not one "
+             f"(batches {[n for n, _ in dispatched]})")
+    if n_forwards != 3 or launches["resize_normalize"] != 4:
+        fail(f"serve: {n_forwards} forwards and {launches['resize_normalize']} K1 launches "
+             "for 4 requests in 3 batches")
+    if launches["fused_bottleneck"] != K2_PER_PASS * n_forwards:
+        fail(f"serve: K2 launched {launches['fused_bottleneck']} times for {n_forwards} "
+             f"backbone passes ({K2_PER_PASS} each)")
+    if health[0] != 200 or stats[1]["requests_ok"] != 4 or stats[1]["requests_failed"] != 0:
+        fail(f"serve: /healthz {health[0]}, /stats {out['stats']}")
+    if outside[0] != 403:
+        fail(f"serve: a video outside the root answered {outside[0]}, not 403")
+    if not drained or after_health != (503, {"status": "draining"}) or after_stvg[0] != 503:
+        fail(f"serve: after drain() /healthz {after_health}, /stvg {after_stvg[0]}")
+    return launches
+
+
+def fan_in_state_dict(model, seed: int):
+    """Weights from a numpy seed at the scale of a trained model's: each
+    matrix, conv kernel and embedding ``N(0, 1/fan_in)``, vectors (norms,
+    biases, FrozenBN statistics) as ``fabricate_state_dict`` leaves them.
+    At the seed weights' 0.02 the heads' logits sit within 1e-6 of each
+    other and an argmax between queries would read summation order."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name, t in model.state_dict().items():
+        if t.dim() >= 2:
+            v = rng.randn(*t.shape) / np.sqrt(t[0].numel())
+            t = torch.from_numpy(v.astype(np.float32))
+        out[name] = t.float().cpu()
+    return out
+
+
+VARIANTS = {"gating": dict(fast_mode="gating"), "transformer": dict(fast_mode="transformer"),
+            "pool": dict(fast_mode="pool"), "noslow": dict(fast_mode="noslow"),
+            "nq3": dict(num_queries=3)}
+
+
+def phase_variants(workdir: str):
+    """The other inference configurations. On the small config, card against
+    CPU with the same seeded weights (``fan_in_state_dict``) and the same
+    frames (prepared on the CPU), every output to ``SMALL_ATOL``; for ``num_queries=3`` the two
+    selectors' winners equal too. The tubes of card and CPU, scored by
+    ``VIoUEvaluator`` against seeded annotations, summarize within 1e-3.
+    Then ``fast_mode="transformer"`` at full width in bf16: one warm B=2
+    ``ground_many``."""
+    import numpy as np
+    import torch
+
+    from tubedetr_tpu_torch.apps.pipeline import GroundingPipeline
+    from tubedetr_tpu_torch.data.annotations import VideoAnnotation
+    from tubedetr_tpu_torch.eval.viou import VIoUEvaluator
+    from tubedetr_tpu_torch.models.postprocess import (
+        postprocess_boxes,
+        postprocess_sted,
+        select_query_by_objectness,
+        select_query_by_sted,
+    )
+
+    path = os.path.join(workdir, "small.npy")
+    rng = np.random.RandomState(4)
+    evaluators = {dev: [] for dev in ("cuda", "cpu")}
+    anns = []
+    for name, extra in VARIANTS.items():
+        cfg = small_cfg().replace(**extra)
+        pipes = {dev: GroundingPipeline(cfg, device=dev) for dev in ("cuda", "cpu")}
+        weights = fan_in_state_dict(pipes["cpu"].model, seed=len(anns))
+        for pipe in pipes.values():
+            pipe.model.load_state_dict(weights)
+        sample, ctx = pipes["cpu"].prepare(path, "a red square", -1, -1, name)
+        outs, batch = pipes["cpu"].forward([sample])
+        sample.frames = sample.frames.cuda()
+        outs = {"cpu": outs, "cuda": pipes["cuda"].forward([sample])[0]}
+        errs = {k: float(np.abs(outs["cuda"][k] - outs["cpu"][k]).max()) for k in outs["cpu"]}
+        worst = max(errs, key=errs.get)
+        line = {"keys": len(errs), "max_abs_err": errs[worst], "worst": worst}
+        if set(outs["cuda"]) != set(outs["cpu"]) or not errs[worst] <= SMALL_ATOL:
+            fail(f"variant {name}: {worst} differs between card and CPU by {errs[worst]}")
+        t, h, w = ctx["t"], ctx["h"], ctx["w"]
+        mask = batch["time_mask"]
+        if cfg.num_queries > 1:
+            sel = {dev: (select_query_by_sted(o["pred_sted_queries"], mask, [name]).tolist(),
+                         select_query_by_objectness(o["pred_obj_queries"], mask).tolist())
+                   for dev, o in outs.items()}
+            obj = np.sort(outs["cpu"]["pred_obj_queries"][0, :t], axis=-1)
+            line.update(selected=sel["cuda"], objectness_min_gap=float((obj[:, -1] - obj[:, -2]).min()))
+            if sel["cuda"] != sel["cpu"]:
+                fail(f"variant {name}: the query selectors pick {sel['cuda']} on the card, "
+                     f"{sel['cpu']} on the CPU")
+        # a seeded annotation for this request, and each device's tube
+        t0 = int(rng.randint(0, t - 2))
+        t1 = int(rng.randint(t0 + 1, t + 1))
+        inter = list(range(t0, t1))
+        anns.append(VideoAnnotation(
+            video_id=name, frame_ids=list(range(t)), inter_frames=inter, tube_start_frame=t0,
+            tube_end_frame=t1, caption="a red square", qtype=("declarative", "interrogative")[len(anns) % 2],
+            boxes_xywh={f: [float(v) for v in rng.uniform(10, 60, 4)] for f in inter},
+            video_path=path, start_seconds=0.0, duration_seconds=t / 5))
+        for dev, o in outs.items():
+            (sted,) = postprocess_sted(o["pred_sted"], [list(range(t))], [name], mask)
+            boxes = postprocess_boxes(o["pred_boxes"][0], np.array([h, w]))[:t]
+            evaluators[dev].append(({f"{name}_{f}": {"boxes": [boxes[f].tolist()]} for f in range(t)},
+                                    {name: {"sted": [int(sted[0]), int(sted[1])]}}))
+            line[f"sted_{dev}"] = [int(sted[0]), int(sted[1])]
+        print(f"[variants] {name}: {json.dumps(line)}", flush=True)
+        del pipes
+    summaries = {}
+    for dev, items in evaluators.items():
+        ev = VIoUEvaluator(anns)
+        for frames, video in items:
+            ev.update(frames)
+            ev.video_update(video)
+        summaries[dev] = ev.summarize()
+    diff = max(abs(summaries["cuda"][k] - summaries["cpu"][k]) for k in summaries["cpu"])
+    print(f"[variants] vIoU card {json.dumps(summaries['cuda'])}; max |card - cpu| {diff}",
+          flush=True)
+    if set(summaries["cuda"]) != set(summaries["cpu"]) or not diff <= 1e-3:
+        fail(f"variants: the vIoU summaries of card and CPU differ by {diff}")
+
+    # fast_mode="transformer" at full width: 2 x 836 sequences of 200 frames.
+    # Its forward is timed in turns with the default fast branch's on the
+    # same prepared frames (default, transformer, transformer, default, ...)
+    reqs = [(os.path.join(workdir, f"request{i}.npy"), q, -1.0, -1.0)
+            for i, q in enumerate(("a man in a red shirt rides a horse",
+                                   "the dog runs across the grass"))]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = GroundingPipeline(full_width_cfg("bfloat16", fast_mode="transformer"))
+    _, cold_s = synced(lambda: pipe.ground_many(reqs, render=False))
+    results, warm_s = synced(lambda: pipe.ground_many(reqs, render=False))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_tubes("transformer full width", results)
+    pipes = {"default": GroundingPipeline(full_width_cfg("bfloat16")), "transformer": pipe}
+    samples = [pipe.prepare(*r, video_id=f"req{i}")[0] for i, r in enumerate(reqs)]
+    forward_s = {name: [] for name in pipes}
+    for name in ("default", "transformer", "transformer", "default") * 3:
+        (outputs, _), sec = synced(lambda: pipes[name].forward(samples))
+        forward_s[name].append(sec)
+        if name == "transformer":
+            check_results("transformer full width", results, outputs)
+    line = {"cold_ground_many_b2_s": cold_s, "warm_ground_many_b2_s": warm_s,
+            "b2_forward_s_in_turns": forward_s,
+            "b2_forward_median_s": {k: sorted(v)[len(v) // 2] for k, v in forward_s.items()},
+            "segments": [r["sted"] for r in results], "max_memory_allocated_gib": peak}
+    print(f"[variants] transformer full width bf16: {json.dumps(line)}", flush=True)
+    del pipe, pipes, samples, outputs
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -890,7 +1215,7 @@ def main() -> int:
     print(f"[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     logs = _cuda_build.build_all(_cuda_build.sources())
     print(f"[build] {sorted(logs)} in {time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in logs.items():
@@ -904,17 +1229,23 @@ def main() -> int:
     workdir = os.path.join(HERE, "tubedetr_tpu_torch", "build", "smoke")
     os.makedirs(workdir, exist_ok=True)
     try:
-        launches = phase_main_path(workdir)
+        pipeline_launches = phase_main_path(workdir)
         phase_small_agreement(workdir)
         phase_small_int8_agreement(workdir)
+        launches = phase_serve(workdir)
+        phase_variants(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
     probes = phase_probes()
-    # the counts of this slice's path: int8_static + K2 serving
-    k1["launches"] = launches["resize_normalize"]
-    k2["launches"] = launches["fused_bottleneck"]
+    # the counts of the serving path, the HTTP server (int8_static + K2);
+    # the pipeline phase's beside them
+    for entry, key in ((k1, "resize_normalize"), (k2, "fused_bottleneck")):
+        entry["launches"] = launches[key]
+        entry["launches_by_path"] = {"serve": launches[key],
+                                     "int8_static+fused pipeline": pipeline_launches[key]}
 
+    print(f"[time] chip_smoke.py took {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": [k1, k2, *probes]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

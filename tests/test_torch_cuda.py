@@ -3,7 +3,8 @@
 They hold the CUDA kernels (K1, resize+normalize; K2, the fused int8
 bottleneck; the probes P1-P5) to their plain PyTorch versions on the card,
 and the pipeline on the card (float, and int8_static + K2) to the pipeline
-on the CPU. This file imports
+on the CPU; the HTTP server on the card coalesces two concurrent requests
+into one forward. This file imports
 nothing of JAX, so it also runs on a machine with only PyTorch:
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -139,6 +140,67 @@ def test_pipeline_on_the_card_matches_the_cpu(tmp_path):
     size = np.array([160, 96, 160, 96], np.float64)
     np.testing.assert_allclose(np.asarray(out["cuda"]["boxes"]) / size,
                                np.asarray(out["cpu"]["boxes"]) / size, atol=1e-3)
+
+
+def test_server_on_the_card_coalesces_two_requests(tmp_path):
+    """The port's Server on the card (its default device): two concurrent
+    /stvg requests run as one forward, K1 launches once a request, and each
+    tube is the one the pipeline gives the request alone."""
+    require_cuda()
+    import json
+    import threading
+    import time
+    import urllib.parse
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from tubedetr_tpu_torch.apps.serve import Server, make_handler
+    from tubedetr_tpu_torch.config import TubeDETRConfig
+
+    cfg = TubeDETRConfig(
+        backbone="resnet14", hidden_dim=32, nheads=4, enc_layers=1, dec_layers=2,
+        dim_feedforward=64, video_max_len=8, video_max_len_train=8, stride=2,
+        resolution=128, max_text_len=8, text_vocab_size=128, text_hidden_size=32,
+        text_layers=1, text_heads=4, text_ffn=64, text_max_positions=40,
+        guided_attn=False, aux_loss=False, dropout=0.0, serve_max_batch=2,
+        output_dir=str(tmp_path / "out"),
+    )
+    for i in range(2):
+        np.save(tmp_path / f"clip{i}.npy",
+                np.random.RandomState(i).randint(0, 256, (7 - i, 96, 160, 3), dtype=np.uint8))
+    server = Server(cfg, video_root=str(tmp_path))
+    assert server.pipeline.device.type == "cuda"
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    out = {}
+
+    def fire(i):
+        q = urllib.parse.urlencode({"video": f"clip{i}.npy", "question": "a red square",
+                                    "format": "json"})
+        out[i] = json.loads(urllib.request.urlopen(f"{url}/stvg?{q}", timeout=300).read())
+
+    before = resize_normalize.launches
+    with server.lock:  # the dispatcher waits until both requests are queued
+        threads = [threading.Thread(target=fire, args=(i,)) for i in range(2)]
+        for th in threads:
+            th.start()
+        deadline = time.time() + 60
+        while len(server._pending) < 2 and time.time() < deadline:
+            time.sleep(0.01)
+        assert len(server._pending) == 2, "requests never enqueued"
+    for th in threads:
+        th.join(timeout=300)
+    httpd.shutdown()
+    assert server.pipeline.forwards == 1
+    assert resize_normalize.launches == before + 2
+    size = np.array([160, 96, 160, 96], np.float64)
+    for i in range(2):
+        alone = server.pipeline.ground(str(tmp_path / f"clip{i}.npy"), "a red square",
+                                       render=False)
+        assert out[i]["sted"] == alone["sted"]
+        np.testing.assert_allclose(np.asarray(out[i]["boxes"]) / size,
+                                   np.asarray(alone["boxes"]) / size, atol=1e-4)
 
 
 K2_CASES = {  # (frames, height, width, planes, dilation)

@@ -179,7 +179,10 @@ def test_load_reference_pth_prefers_ema_and_truncates_queries(tmp_path):
 def test_config_rejects_what_the_port_does_not_run():
     for kw in (dict(backbone_quant="int8_qat"), dict(backbone_quant_fast="int8_static"),
                dict(backbone_quant_frozen="int8_static"), dict(backbone="resnet101-gn"),
-               dict(backbone="timm_efficientnet_b3"), dict(fast_mode="gating"),
-               dict(num_queries=2)):
+               dict(backbone="timm_efficientnet_b3"), dict(position_embedding="learned"),
+               dict(no_tsa=True), dict(learn_time_embed=True), dict(no_time_embed=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TubeDETRConfig(**kw).validate()
+    # the fast_mode variants and num_queries > 1 run
+    for kw in (dict(fast_mode="gating"), dict(fast_mode="noslow"), dict(num_queries=2)):
+        TubeDETRConfig(**kw).validate()

@@ -90,7 +90,9 @@ def test_new_int8_modules_are_scanned():
     names = {os.path.relpath(p, ROOT) for p in _port_files()}
     for mod in ("ops/int8_conv.py", "ops/fused_bottleneck.py", "models/quantize.py",
                 "ops/probe_mm.py", "ops/probe_bottleneck.py", "probes/__init__.py",
-                "probes/int8_matmul.py", "probes/fused_variants.py", "probes/mm_ablations.py"):
+                "probes/int8_matmul.py", "probes/fused_variants.py", "probes/mm_ablations.py",
+                "apps/serve.py", "apps/demo.py", "apps/cli.py", "eval/viou.py",
+                "data/annotations.py"):
         assert os.path.join("tubedetr_tpu_torch", mod) in names
 
 

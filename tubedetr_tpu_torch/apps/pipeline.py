@@ -78,6 +78,7 @@ class GroundingPipeline:
         self._weights_tag = f"fabricate-torch-seed{seed}"
         self._needs_calibration = cfg.backbone_quant == "int8_static"
         self.calibration_s = 0.0  # host seconds of the last calibration
+        self.forwards = 0  # batched forwards run (``forward`` calls)
         if cfg.load:
             self.reload(cfg.load)
 
@@ -148,8 +149,11 @@ class GroundingPipeline:
 
     @torch.inference_mode()
     def forward(self, samples: List[VideoSample]):
-        """One batched forward over prepared samples: (numpy outputs, batch)."""
+        """One batched forward over prepared samples: (numpy outputs, batch).
+        A ``num_queries > 1`` model's canonical outputs are query 0's, so the
+        tube served is query 0's, as in the JAX pipeline."""
         cfg = self.cfg
+        self.forwards += 1
         batch = collate(samples, cfg.video_max_len, cfg.stride, cfg.max_text_len,
                         with_fast=cfg.fast)
         inputs = model_inputs(batch)

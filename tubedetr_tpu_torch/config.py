@@ -6,12 +6,15 @@ mesh or TPU paths read are kept for that interchange; the port ignores them.
 ``validate()`` additionally rejects the settings this port does not run yet,
 naming the ROADMAP item that will bring each. The int8 backbone modes
 ``int8`` and ``int8_static`` (with or without ``fused_bottleneck``) run on
-the frozen-BN ResNets.
+the frozen-BN ResNets; every ``fast_mode`` and ``num_queries > 1`` run,
+and ``validate()`` accepts and refuses those fields as the JAX package's
+does. ``apply_json_overlay`` is the CLI's ``--dataset_config``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import List
 
@@ -159,6 +162,20 @@ class TubeDETRConfig:
     def replace(self, **kw) -> "TubeDETRConfig":
         return dataclasses.replace(self, **kw)
 
+    def apply_json_overlay(self, path: str) -> "TubeDETRConfig":
+        """Every key of a JSON dataset config overwrites this config's value
+        (``eval`` names ``evaluate_only``); an unknown key raises."""
+        with open(path) as f:
+            overlay = json.load(f)
+        known = {f.name for f in dataclasses.fields(self)}
+        clean = {}
+        for k, v in overlay.items():
+            k = {"eval": "evaluate_only"}.get(k, k)
+            if k not in known:
+                raise ValueError(f"Unknown config key {k!r} in {path}")
+            clean[k] = v
+        return self.replace(**clean)
+
     def validate(self) -> "TubeDETRConfig":
         if self.fast_mode not in ("", "gating", "transformer", "pool", "noslow"):
             raise ValueError(f"unknown fast_mode {self.fast_mode!r}")
@@ -168,6 +185,17 @@ class TubeDETRConfig:
             raise ValueError("hidden_dim must be a multiple of nheads")
         if self.num_queries < 1:
             raise ValueError(f"num_queries must be >= 1, got {self.num_queries}")
+        if self.num_queries > 1 and self.no_tsa:
+            # the per-frame aggregation of the TSA weights needs real TSA
+            raise ValueError("num_queries > 1 requires temporal self-attention "
+                             "(incompatible with --no_tsa)")
+        if self.nq_select not in ("first", "sted", "objectness"):
+            raise ValueError(f"unknown nq_select {self.nq_select!r}")
+        if self.nq_match not in ("frame", "video"):
+            raise ValueError(f"unknown nq_match {self.nq_match!r}")
+        if self.nq_select == "sted" and not self.sted:
+            raise ValueError("--nq_select sted ranks queries by the sted head's "
+                             "confidence and requires --sted")
         if self.fast_mode and not self.fast:
             raise ValueError("fast_mode requires fast=True")
         if not self.pass_pos_and_query:
@@ -194,17 +222,6 @@ class TubeDETRConfig:
             raise NotImplementedError(
                 f"backbone {self.backbone!r}: the timm and GroupNorm "
                 "backbones come with ROADMAP queue 1 'Secondary features'"
-            )
-        if self.fast_mode != "":
-            raise NotImplementedError(
-                f"fast_mode={self.fast_mode!r}: the other fast-branch "
-                "variants come with ROADMAP queue 1 'Other fast_modes and "
-                "num_queries > 1'"
-            )
-        if self.num_queries > 1:
-            raise NotImplementedError(
-                "num_queries > 1 comes with ROADMAP queue 1 'Other "
-                "fast_modes and num_queries > 1'"
             )
         if (
             self.position_embedding != "sine"

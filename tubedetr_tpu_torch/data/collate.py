@@ -5,6 +5,9 @@ space pads to the batch's largest (bucketed) frame, and ragged structure is
 carried by boolean masks (True on padding). Masks, tokens and durations are
 built on the host; the frames stay tensors on the device they arrive on, so
 the serving path never copies pixels back to the host.
+
+``split_video_into_clips`` is the evaluation's ``div_vid`` split of a long
+video into clips that share its id, so ``postprocess_sted`` ensembles them.
 """
 
 from __future__ import annotations
@@ -28,6 +31,10 @@ class VideoSample:
     caption: str
     tokens: Optional[np.ndarray] = None  # (L,) int
     orig_size: tuple = (0, 0)  # (h, w) before transforms
+    # what evaluation reads; serving leaves the defaults
+    boxes_cxcywh: Optional[np.ndarray] = None  # (t, 4) normalized, zeros outside the moment
+    inter_idx: tuple = (-100, -100)  # (start, end) inclusive; (-100, -100) if empty
+    qtype: str = "declarative"
 
 
 def collate(
@@ -99,3 +106,32 @@ MODEL_INPUTS = (
 def model_inputs(batch: Dict) -> Dict:
     """The keyword arguments of ``TubeDETR.forward`` from a collated batch."""
     return {k: batch[k] for k in MODEL_INPUTS if k in batch}
+
+
+def split_video_into_clips(sample: VideoSample, clip_len: int) -> List[VideoSample]:
+    """Chop a long video into ``ceil(t / clip_len)`` clips that share its
+    id and caption; each clip's ``inter_idx`` is re-offset into the clip, or
+    ``(-100, -100)`` where the clip misses the moment."""
+    t = sample.frames.shape[0]
+    out = []
+    for c in range(math.ceil(t / clip_len)):
+        lo, hi = c * clip_len, min((c + 1) * clip_len, t)
+        s0, e0 = sample.inter_idx
+        if s0 < 0 or e0 < lo or s0 >= hi:
+            inter = (-100, -100)
+        else:
+            inter = (max(s0, lo) - lo, min(e0, hi - 1) - lo)
+        boxes = sample.boxes_cxcywh
+        out.append(VideoSample(
+            frames=sample.frames[lo:hi],
+            valid_hw=sample.valid_hw,
+            frames_id=sample.frames_id[lo:hi],
+            video_id=sample.video_id,
+            caption=sample.caption,
+            tokens=sample.tokens,
+            orig_size=sample.orig_size,
+            boxes_cxcywh=None if boxes is None else boxes[lo:hi],
+            inter_idx=inter,
+            qtype=sample.qtype,
+        ))
+    return out

@@ -12,7 +12,10 @@ names are the reference checkpoint's. Layout rules:
 * the ``input_proj`` Dense ``(2048, D)`` -> a 1x1 ``Conv2d`` ``(D, 2048, 1, 1)``
 * FrozenBatchNorm statistics come from the ``buffers`` collection
 * ResNet stage tails in either layout: scanned (``layer{i}_rest/block``,
-  stacked on axis 0) or unrolled (``layer{i}_{j}``).
+  stacked on axis 0) or unrolled (``layer{i}_{j}``)
+* the fast branch as a linear layer (``""``, gating, pool, noslow) or as
+  ``fast_mode="transformer"``'s encoder layer plus final norm
+  (``fast_encoder/layer_0``, ``fast_encoder/norm``); noslow has no encoder.
 
 ``qscales_from_jax`` / ``qscales_to_flax`` move the int8 backbone's
 calibrated activation maxima (the flax ``qscales`` collection, in either
@@ -139,6 +142,15 @@ def mha_from_jax(tree: Tree) -> Dict[str, torch.Tensor]:
     return _tensors({k.lstrip("."): v for k, v in _mha(tree, "").items()})
 
 
+def _encoder_layer(lp: Tree, name: str) -> Dict[str, np.ndarray]:
+    sd = _mha(lp["self_attn"], f"{name}.self_attn")
+    for k in ("linear1", "linear2"):
+        sd.update(_linear(lp[k], f"{name}.{k}"))
+    for k in ("norm1", "norm2"):
+        sd.update(_layernorm(lp[k], f"{name}.{k}"))
+    return sd
+
+
 def transformer_from_jax(tr: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     """JAX ``TubeDETRTransformer`` params -> the port's ``TubeDETRTransformer``
     state_dict, without its ``text_encoder`` (a sibling in the JAX tree)."""
@@ -146,14 +158,10 @@ def transformer_from_jax(tr: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
         **_linear(tr["resizer"]["fc"], f"{prefix}resizer.fc"),
         **_layernorm(tr["resizer"]["layer_norm"], f"{prefix}resizer.layer_norm"),
     }
+    enc = tr.get("encoder", {})  # fast_mode="noslow" has none
     i = 0
-    while f"layer_{i}" in tr["encoder"]:
-        lp, name = tr["encoder"][f"layer_{i}"], f"{prefix}encoder.layers.{i}"
-        sd.update(_mha(lp["self_attn"], f"{name}.self_attn"))
-        for k in ("linear1", "linear2"):
-            sd.update(_linear(lp[k], f"{name}.{k}"))
-        for k in ("norm1", "norm2"):
-            sd.update(_layernorm(lp[k], f"{name}.{k}"))
+    while f"layer_{i}" in enc:
+        sd.update(_encoder_layer(enc[f"layer_{i}"], f"{prefix}encoder.layers.{i}"))
         i += 1
     i = 0
     while f"layer_{i}" in tr["decoder"]:
@@ -166,15 +174,51 @@ def transformer_from_jax(tr: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
             sd.update(_layernorm(lp[k], f"{name}.{k}"))
         i += 1
     sd.update(_layernorm(tr["decoder"]["norm"], f"{prefix}decoder.norm"))
-    for k in ("fast_encoder", "fast_residual"):
-        if k in tr:
-            sd.update(_linear(tr[k], f"{prefix}{k}"))
+    fast = tr.get("fast_encoder")
+    if fast is not None and "layer_0" in fast:  # fast_mode="transformer"
+        sd.update(_encoder_layer(fast["layer_0"], f"{prefix}fast_encoder.layers.0"))
+        sd.update(_layernorm(fast["norm"], f"{prefix}fast_encoder.norm"))
+    elif fast is not None:
+        sd.update(_linear(fast, f"{prefix}fast_encoder"))
+    if "fast_residual" in tr:
+        sd.update(_linear(tr["fast_residual"], f"{prefix}fast_residual"))
     return _tensors(sd)
+
+
+def _expected_layout(cfg) -> dict:
+    """What ``TubeDETR(cfg)`` holds: encoder and decoder layers, the fast
+    branch's form, the residual fusion, the objectness head."""
+    fast_mode = cfg.fast_mode if cfg.fast else None
+    return {
+        "encoder layers": 0 if cfg.fast_mode == "noslow" else cfg.enc_layers,
+        "decoder layers": cfg.dec_layers,
+        "fast_encoder": None if fast_mode is None else
+        ("layer" if fast_mode == "transformer" else "linear"),
+        "fast_residual": fast_mode in ("", "transformer", "pool"),
+        "objectness_embed": cfg.num_queries > 1,
+    }
+
+
+def _layout(sd: Dict) -> dict:
+    fast = None
+    if "transformer.fast_encoder.weight" in sd:
+        fast = "linear"
+    elif "transformer.fast_encoder.norm.weight" in sd:
+        fast = "layer"
+    return {
+        "encoder layers": sum(k.startswith("transformer.encoder.layers.")
+                              and k.endswith(".self_attn.in_proj_weight") for k in sd),
+        "decoder layers": sum(k.endswith(".cross_attn_image.in_proj_weight") for k in sd),
+        "fast_encoder": fast,
+        "fast_residual": "transformer.fast_residual.weight" in sd,
+        "objectness_embed": "objectness_embed.layers.0.weight" in sd,
+    }
 
 
 def params_from_jax(variables: Tree, cfg) -> Dict[str, torch.Tensor]:
     """The JAX package's ``{"params", "buffers"}`` variables -> the port's
-    ``state_dict`` (float32 CPU tensors) for ``TubeDETR(cfg)``."""
+    ``state_dict`` (float32 CPU tensors) for ``TubeDETR(cfg)``. Raises when
+    the variables' layers or fast branch are not the ones ``cfg`` builds."""
     p = variables["params"]
     sd = resnet_from_jax(p["backbone"], variables["buffers"]["backbone"], "backbone.0.body.")
     sd.update(roberta_from_jax(p["text_encoder"], "transformer.text_encoder."))
@@ -187,17 +231,12 @@ def params_from_jax(variables: Tree, cfg) -> Dict[str, torch.Tensor]:
     }
     if cfg.sted:
         heads.update(_mlp(p["sted_embed"], "sted_embed"))
+    if "objectness_embed" in p:
+        heads.update(_mlp(p["objectness_embed"], "objectness_embed"))
     sd.update(_tensors(heads))
-    n_enc = sum(k.endswith(".self_attn.in_proj_weight") and ".encoder." in k for k in sd)
-    n_dec = sum(k.endswith(".cross_attn_image.in_proj_weight") for k in sd)
-    if (n_enc, n_dec) != (cfg.enc_layers, cfg.dec_layers) or cfg.fast != (
-        "transformer.fast_encoder.weight" in sd
-    ):
-        raise ValueError(
-            f"JAX variables hold {n_enc} encoder / {n_dec} decoder layers, fast="
-            f"{'transformer.fast_encoder.weight' in sd}; the config wants "
-            f"{cfg.enc_layers} / {cfg.dec_layers}, fast={cfg.fast}"
-        )
+    have, want = _layout(sd), _expected_layout(cfg)
+    if have != want:
+        raise ValueError(f"JAX variables hold {have}; the config wants {want}")
     return sd
 
 

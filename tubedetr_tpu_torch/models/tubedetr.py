@@ -3,9 +3,16 @@
 Module names follow the reference ``state_dict`` grammar: ``backbone.0.body.*``
 (the ResNet trunk), ``transformer.*`` (text encoder, encoder, decoder, fast
 branch), ``input_proj`` (a 1x1 conv), ``query_embed``, ``bbox_embed`` and
-``sted_embed``; a reference ``.pth`` loads as it is (``interop/from_jax.py:
+``sted_embed`` (and ``objectness_embed`` when ``num_queries > 1``); a
+reference ``.pth`` loads as it is (``interop/from_jax.py:
 load_reference_pth``). Inputs are normalized NHWC frames plus masks, as
 ``data/collate.py`` builds them; the text is pre-tokenized to static length.
+
+With ``num_queries > 1`` the canonical outputs (``pred_boxes``,
+``pred_sted``, their ``aux_*``) read query 0; every query's boxes, sted
+logits and objectness logits come under ``*_queries``. The TSA weights are
+aggregated a frame, ``(B, T, T)`` (the mean over both query blocks, times
+nq), and the cross weights averaged over each frame's queries.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ class TubeDETR(nn.Module):
             video_max_len=cfg.video_max_len_train,
             stride=cfg.stride,
             fast=cfg.fast,
+            fast_mode=cfg.fast_mode,
             text_cfg=RobertaConfig(
                 vocab_size=cfg.text_vocab_size,
                 hidden_size=cfg.text_hidden_size,
@@ -68,6 +76,8 @@ class TubeDETR(nn.Module):
         self.bbox_embed = MLP(d, d, 4, 3)
         if cfg.sted:
             self.sted_embed = MLP(d, d, 2, 2)
+        if cfg.num_queries > 1:  # the per-(frame, query) objectness logit
+            self.objectness_embed = MLP(d, d, 1, 2)
 
     def cast_compute(self, dtype: torch.dtype) -> "TubeDETR":
         """Cast parameters to the compute dtype. FrozenBatchNorm buffers stay
@@ -174,19 +184,30 @@ class TubeDETR(nn.Module):
             frame_pad_mask=frame_pad,
             fast_src=fast_src,
         )
-        hs = tr["hs"]  # (n_layers, B, T, D)
-        coord = torch.sigmoid(self.bbox_embed(hs)).float()
+        hs = tr["hs"]  # (n_layers, B, T*nq, D), frame-major
+        nl, nq = hs.shape[0], cfg.num_queries
+        coord_q = torch.sigmoid(self.bbox_embed(hs)).float().reshape(nl, b, t, nq, 4)
+        # per frame: TSA weights mean over both query blocks (times nq), cross
+        # weights mean over the frame's queries; both the identity at nq=1
+        tsa = tr["tsa_weights"].float().reshape(nl, b, t, nq, t, nq).mean(dim=(3, 5)) * nq
+        ca = tr["cross_weights"].float().reshape(nl, b, t, nq, -1).mean(dim=3)
         out = {
-            "pred_boxes": coord[-1],
-            "aux_pred_boxes": coord[:-1],
-            "weights": tr["tsa_weights"][-1].float(),
-            "aux_weights": tr["tsa_weights"][:-1].float(),
-            "ca_weights": tr["cross_weights"][-1].float(),
+            "pred_boxes": coord_q[-1, :, :, 0],
+            "aux_pred_boxes": coord_q[:-1, :, :, 0],
+            "weights": tsa[-1],
+            "aux_weights": tsa[:-1],
+            "ca_weights": ca[-1],
         }
         if cfg.sted:
-            sted = self.sted_embed(hs).float()
-            out["pred_sted"] = sted[-1]
-            out["aux_pred_sted"] = sted[:-1]
+            sted_q = self.sted_embed(hs).float().reshape(nl, b, t, nq, 2)
+            out["pred_sted"] = sted_q[-1, :, :, 0]
+            out["aux_pred_sted"] = sted_q[:-1, :, :, 0]
+        if nq > 1:
+            obj_q = self.objectness_embed(hs).float().reshape(nl, b, t, nq)
+            out.update(pred_boxes_queries=coord_q[-1], aux_pred_boxes_queries=coord_q[:-1],
+                       pred_obj_queries=obj_q[-1], aux_pred_obj_queries=obj_q[:-1])
+            if cfg.sted:
+                out.update(pred_sted_queries=sted_q[-1], aux_pred_sted_queries=sted_q[:-1])
         return out
 
 

@@ -40,7 +40,24 @@ line:
    card against CPU on the same frames (the selectors' winners equal), the
    tubes scored by ``VIoUEvaluator`` on both; ``fast_mode="transformer"``
    at full width in bf16, one warm B=2 call;
-8. the probes P1-P5 (``tubedetr_tpu_torch/probes``): both entry points at
+8. training (``phase_train_small``, ``phase_train``): one small
+   dropout-free train step (B=2, ragged durations, fast branch,
+   ``grad_accum=2``, AdamW, EMA) card against CPU from the same weights and
+   batch (loss terms and grad norm to ``TRAIN_LOSS_RTOL``, the parameters to
+   ``adamw_atol``), then ``evaluate`` on both over a synthetic val set cut
+   by ``div_vid`` (vIoU within 1e-3); then ``train_one_epoch`` for
+   ``TRAIN_STEPS`` steps of the published training config at full width
+   (ResNet-101, RoBERTa-base, 200 frames of 224x398, stride 5, f32 without
+   TF32, dropout, AdamW with ``linear_with_warmup``, EMA, remat): every loss
+   term finite under ``loss_weight_dict``'s keys, the stem, layer1 and every
+   FrozenBN buffer unchanged bit for bit, layer2-4, the transformer and the
+   text encoder changed, the LRs of the steps ``current_lrs``'s, K1 and K2
+   never launched. The ``[train]`` line: cold and warm step, the split into
+   forward + loss, backward and clip + optimizer + EMA, the trunk's passes
+   alone, peak memory with remat on and off, the pre-clip grad norms, beside
+   the card's name and power limit; ``[train-profile]``: one warm step under
+   ``torch.profiler``;
+9. the probes P1-P5 (``tubedetr_tpu_torch/probes``): both entry points at
    the scripts' full shapes with their launch counts zeroed just before and
    read just after, each kernel held exactly to its plain version, and
    noshift and convonly timed beside K2 at layer3's serving shape. They run
@@ -51,7 +68,8 @@ line:
    wrapper's host microseconds a call.
 
 Then the script's seconds, one ``kernels`` JSON line (each kernel's
-``launches`` counted on phase 6's path), the ``nvidia-smi`` line again, and,
+``launches`` counted on phase 6's path, and by path: serve, the int8 + K2
+pipeline, train), the ``nvidia-smi`` line again, and,
 last, the ``ok`` JSON line. There is no CPU path: without a card the script exits 2.
 """
 
@@ -105,6 +123,11 @@ PROBE_SPECS = ("full:2", "noshift:2", "dot2d:2", "convonly:2", "noshift:8", "hwp
 PROBE_SERVING = K2_STAGES["layer3"][:5]
 PROBE_SERVING_SEED = 22
 WAIT_S = 600.0  # an HTTP request of the serve phase, the cold one's calibration included
+# the train phase: the published config's frames (a 16:9 clip at resolution 224)
+TRAIN_T, TRAIN_HW = 200, (224, 398)
+TRAIN_STEPS = 6  # train_one_epoch's steps at full width: one cold, five warm
+TRAIN_LOSS_RTOL = 1e-4  # card vs CPU, loss terms and grad norm: float32 sums in another order
+TRAIN_PARAM_ATOL = 2e-5  # card vs CPU after one AdamW step (tests/test_torch_train.py's bound)
 
 
 def fail(msg: str) -> None:
@@ -1193,6 +1216,312 @@ def phase_variants(workdir: str):
     torch.cuda.empty_cache()
 
 
+def train_cfg():
+    """The published training config (the JAX ``config.py`` defaults): ResNet-101, RoBERTa-base,
+    hidden 256, 6 + 6 layers, 8 heads, FFN 2048, fast branch, sted, aux and guided attention,
+    resolution 224, 200 frames at stride 5, B=1, AdamW with ``linear_with_warmup``, EMA on."""
+    from tubedetr_tpu_torch.config import TubeDETRConfig
+
+    return TubeDETRConfig(ema=True).validate_training()
+
+
+def timed_step(cfg, deterministic: bool = False, keep_grads: bool = False):
+    """A ``TrainStep`` that times its forward + loss, backward and clip +
+    optimizer + EMA between synchronizes (``split``, a step each), and
+    records the LRs and metrics of each step and, with ``keep_grads``, the
+    last step's pre-clip gradients."""
+    from tubedetr_tpu_torch.parallel.train_step import TrainStep
+
+    class TimedStep(TrainStep):
+        def __init__(self):
+            super().__init__(cfg, deterministic)
+            self.lrs, self.split, self.metrics, self.grads = [], [], [], None
+
+        def forward_loss(self, *args, **kwargs):
+            out, sec = synced(lambda: super(TimedStep, self).forward_loss(*args, **kwargs))
+            self.split[-1]["forward_loss_s"] += sec
+            return out
+
+        def backward(self, total):
+            _, sec = synced(lambda: super(TimedStep, self).backward(total))
+            self.split[-1]["backward_s"] += sec
+
+        def update(self, state, lrs):
+            if keep_grads:
+                self.grads = {n: p.grad.detach().cpu().clone()
+                              for n, p in state.model.named_parameters() if p.grad is not None}
+            out, sec = synced(lambda: super(TimedStep, self).update(state, lrs))
+            self.split[-1]["clip_opt_ema_s"] += sec
+            return out
+
+        def __call__(self, state, batch, lrs, seed):
+            self.lrs.append(dict(lrs))
+            self.split.append({"forward_loss_s": 0.0, "backward_s": 0.0, "clip_opt_ema_s": 0.0})
+            (state, metrics), sec = synced(lambda: super(TimedStep, self).__call__(state, batch, lrs, seed))
+            self.split[-1]["step_s"] = sec
+            self.metrics.append({k: float(v) for k, v in metrics.items()})
+            return state, metrics
+
+    return TimedStep()
+
+
+def adamw_atol(model, labels, grads, ref_grads, lrs, grad_norm, max_norm):
+    """Per-element atol of two post-step parameter sets: ``TRAIN_PARAM_ATOL``
+    plus ``lr * |u(g) - u(g_ref)|`` of the clipped gradients, with ``u(g) = g /
+    (|g| + 1e-8)`` AdamW's first-step direction; a leaf whose gradient is
+    numerically zero (max |g| < 1e-6) may step by up to lr."""
+    import torch
+
+    from tubedetr_tpu_torch.train.optim import GROUP_LR
+
+    scale = min(1.0, max_norm / grad_norm)
+    atol = {}
+    for n, p in model.named_parameters():
+        t = torch.full(p.shape, TRAIN_PARAM_ATOL)
+        if n in grads:
+            lr = lrs[GROUP_LR[labels[n]]]
+            if ref_grads[n].abs().max() < 1e-6:
+                t += lr
+            else:
+                g1, g2 = grads[n] * scale, ref_grads[n] * scale
+                t += lr * (g1 / (g1.abs() + 1e-8) - g2 / (g2.abs() + 1e-8)).abs()
+        atol[n] = t
+    return atol
+
+
+def phase_train_small():
+    """The small config, card against CPU: one dropout-free train step (B=2,
+    ragged durations 8 and 7, fast branch, ``grad_accum=2``, AdamW, EMA) from
+    the same fan-in weights and batch; the loss terms and grad norm within
+    ``TRAIN_LOSS_RTOL``, the post-step parameters within ``adamw_atol``. Then
+    ``evaluate`` with the EMA parameters over a synthetic val set of three
+    16-frame videos cut into 8-frame clips (``div_vid``): the vIoU summaries
+    within 1e-3."""
+    import numpy as np
+    import torch
+
+    from tubedetr_tpu_torch.data.collate import collate_pairs
+    from tubedetr_tpu_torch.data.synthetic import SyntheticDataset, make_synthetic_sample
+    from tubedetr_tpu_torch.eval.viou import VIoUEvaluator
+    from tubedetr_tpu_torch.models.tubedetr import build_model
+    from tubedetr_tpu_torch.parallel.train_step import create_train_state, make_eval_step
+    from tubedetr_tpu_torch.train.engine import evaluate
+
+    cfg = small_cfg().replace(guided_attn=True, aux_loss=True, batch_size=2, grad_accum=2, ema=True,
+                              ema_decay=0.9, lr=1e-3, lr_backbone=1e-4, text_encoder_lr=1e-3)
+    lrs = {"lr": cfg.lr, "lr_backbone": cfg.lr_backbone, "lr_text_encoder": cfg.text_encoder_lr}
+    weights = fan_in_state_dict(build_model(cfg, device="cpu"), seed=7)
+    samples = [make_synthetic_sample(i, t=8 - i, vocab=cfg.text_vocab_size) for i in range(2)]
+    ((batch, _),) = collate_pairs(samples, 2, 8, cfg.stride, cfg.max_text_len)
+    val = SyntheticDataset(n=3, t=16, seed=20, vocab=cfg.text_vocab_size, text_len=6)
+    pairs = collate_pairs(val.samples, 2, 8, cfg.stride, cfg.max_text_len, div_vid=8)
+    res = []
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, device=dev)
+        model.load_state_dict(weights)
+        state = create_train_state(cfg, model)
+        step = timed_step(cfg, deterministic=True, keep_grads=True)
+        state, metrics = step(state, {k: v.to(dev) if torch.is_tensor(v) else v
+                                      for k, v in batch.items()}, lrs, cfg.seed)
+        ev = VIoUEvaluator(val.annotations)
+        evaluate(cfg, make_eval_step(cfg, ema=True), state, pairs, ev)
+        res.append((state, step.metrics[0], step.grads, ev.summarize()))
+    (s_card, m_card, g_card, v_card), (s_cpu, m_cpu, g_cpu, v_cpu) = res
+    loss_err = max(abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12) for k in m_cpu)
+    atol = adamw_atol(s_cpu.model, s_cpu.labels, g_card, g_cpu, lrs, m_cpu["grad_norm"],
+                      cfg.clip_max_norm)
+    p_card = {n: p.detach().cpu() for n, p in s_card.model.named_parameters()}
+    over = {n: float(((p_card[n] - p.detach()).abs() - atol[n]).max())
+            for n, p in s_cpu.model.named_parameters()}
+    worst = max(over, key=over.get)
+    viou = max(abs(v_card[k] - v_cpu[k]) for k in v_cpu)
+    line = {"loss_total_card": m_card["loss_total"], "loss_total_cpu": m_cpu["loss_total"],
+            "max_rel_err_losses_and_grad_norm": loss_err, "grad_norm_card": m_card["grad_norm"],
+            "params_worst_margin": over[worst], "params_worst": worst,
+            "viou_max_abs_diff": viou, "viou_card": v_card}
+    print(f"[train-small] {json.dumps(line)}", flush=True)
+    if set(m_card) != set(m_cpu) or not loss_err <= TRAIN_LOSS_RTOL:
+        fail(f"train small: losses or grad norm differ card vs CPU by {loss_err} (relative)")
+    if not over[worst] <= 0:
+        fail(f"train small: {worst} differs card vs CPU after the step by {over[worst]} over its atol")
+    if set(v_card) != set(v_cpu) or not viou <= 1e-3:
+        fail(f"train small: the vIoU summaries of card and CPU differ by {viou}")
+
+
+def train_trunk_passes(model, batch, cfg):
+    """Seconds of the trunk's two training passes over one batch, alone:
+    the slow pass (forward with gradients kept, then its backward from a
+    unit gradient) and the fast pass without gradients (the k-1 of every k
+    frames the slow pass did not cover)."""
+    import torch
+
+    from tubedetr_tpu_torch.parallel.train_step import model_inputs, to_device
+
+    inputs = model_inputs(to_device(batch, next(model.parameters()).device))
+    slow = inputs["frames_slow"].flatten(0, 1)
+    feats, fwd_s = synced(lambda: model.backbone_feats(slow))
+    _, bwd_s = synced(lambda: feats.backward(torch.ones_like(feats)))
+    model.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        _, fast_s = synced(lambda: model._fast_feats(inputs["frames_fast"], feats.detach(),
+                                                     slow.shape[0] // inputs["frames_fast"].shape[0]))
+    return {"slow_forward_s": fwd_s, "slow_backward_s": bwd_s, "fast_no_grad_s": fast_s,
+            "slow_frames": slow.shape[0], "fast_frames_run": slow.shape[0] * (max(cfg.stride, 1) - 1)}
+
+
+def traced_step(cfg, state, batch, lrs, top: int = 12):
+    """One warm train step under ``torch.profiler``, device activities only
+    (a host trace of the step's ~10^4 ops costs tens of seconds to
+    aggregate): the sum of the times of the kernels and copies against the
+    step's wall time (the device's busy share, one stream; the trace's
+    overhead counts in the wall time), and the ``top`` of them by time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step = timed_step(cfg)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch, lrs, cfg.seed)
+    rows = []
+    for e in prof.key_averages():
+        # a record_function range (the optimizer's step) also shows on the
+        # device's timeline, over kernels already counted
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        rows.append((us, e.key, e.count))
+    rows.sort(reverse=True)
+    device_s = sum(r[0] for r in rows) / 1e6
+    wall_s = step.split[0]["step_s"]
+    return state, {
+        "step_s_traced": wall_s, "device_kernel_s": device_s,
+        "device_busy_share": device_s / wall_s if wall_s else None,
+        "top_kernels": [{"name": k[:90], "s": us / 1e6, "calls": n} for us, k, n in rows[:top]],
+    }
+
+
+def phase_train(smi: str):
+    """Full-width training on the card: ``train_one_epoch`` over
+    ``TRAIN_STEPS`` synthetic 200-frame 224x398 videos at the published
+    config (dropout on, AdamW, EMA, remat on), then one more step with remat
+    off for its peak memory. Checks: every loss term finite and the keys
+    ``loss_weight_dict``'s; the stem, layer1 and every FrozenBN buffer
+    unchanged bit for bit, layer2-4, the transformer and the text encoder
+    changed; the LRs of steps 0-5 ``current_lrs``'s sequence; K1 and K2
+    never launched. Returns the launches of K1 and K2 on this path."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from tubedetr_tpu_torch.config import loss_weight_dict
+    from tubedetr_tpu_torch.data.collate import collate_pairs
+    from tubedetr_tpu_torch.data.synthetic import make_synthetic_sample
+    from tubedetr_tpu_torch.models.resnet import FrozenBatchNorm2d
+    from tubedetr_tpu_torch.models.tubedetr import build_model
+    from tubedetr_tpu_torch.ops.fused_bottleneck import fused_bottleneck_block
+    from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize
+    from tubedetr_tpu_torch.parallel.train_step import create_train_state
+    from tubedetr_tpu_torch.train.engine import train_one_epoch
+    from tubedetr_tpu_torch.train.optim import base_lrs, current_lrs
+
+    cfg = train_cfg()
+    h, w = TRAIN_HW
+    phase_t0 = t0 = time.perf_counter()
+    samples = [make_synthetic_sample(100 + i, t=TRAIN_T, h=h, w=w, vocab=cfg.text_vocab_size,
+                                     text_len=12) for i in range(TRAIN_STEPS + 1)]
+    pairs = collate_pairs(samples, 1, cfg.video_max_len_train, cfg.stride, cfg.max_text_len)
+    data_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    model.load_state_dict(fan_in_state_dict(model, seed=8))
+    state = create_train_state(cfg, model)
+    build_s = time.perf_counter() - t0
+    before = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    n_trainable = sum(p.numel() for p in model.parameters() if p.requires_grad)
+
+    resize_normalize.launches = 0
+    fused_bottleneck_block.launches = 0
+    step = timed_step(cfg)
+    num_training_steps = cfg.epochs * TRAIN_STEPS
+    state, _ = train_one_epoch(cfg, step, state, pairs[:TRAIN_STEPS], 0, num_training_steps)
+    metrics_seen = step.metrics
+    peak_remat = torch.cuda.max_memory_allocated() / 2**30
+    launches = {"resize_normalize": resize_normalize.launches,
+                "fused_bottleneck": fused_bottleneck_block.launches}
+
+    # checks
+    want_keys = set(loss_weight_dict(cfg)) | {"loss_total", "grad_norm"}
+    for i, m in enumerate(metrics_seen):
+        if set(m) != want_keys:
+            fail(f"train: step {i} losses {sorted(set(m) ^ want_keys)} differ from loss_weight_dict")
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad:
+            fail(f"train: step {i} non-finite {bad}")
+    want_lrs = [base_lrs(cfg)] + [current_lrs(cfg, 0, i - 1, num_training_steps)
+                                  for i in range(1, TRAIN_STEPS)]
+    if step.lrs != want_lrs:
+        fail(f"train: LRs {step.lrs} are not current_lrs's {want_lrs}")
+    after = model.state_dict()
+    frozen = [n for n, p in model.named_parameters() if not p.requires_grad]
+    if not frozen or any(not n.startswith(("backbone.0.body.conv1.", "backbone.0.body.layer1."))
+                         for n in frozen):
+        fail(f"train: the frozen parameters are not the stem and layer1: {frozen[:5]}")
+    frozen += [f"{m}.{b}" for m, mod in model.named_modules() if isinstance(mod, FrozenBatchNorm2d)
+               for b, _ in mod.named_buffers()]
+    moved = [n for n in frozen if not torch.equal(before[n], after[n])]
+    if moved:
+        fail(f"train: frozen tensors changed: {moved[:5]}")
+    for prefix in ("backbone.0.body.layer2.", "backbone.0.body.layer3.", "backbone.0.body.layer4.",
+                   "transformer.encoder.", "transformer.decoder.", "transformer.text_encoder.",
+                   "bbox_embed.", "sted_embed."):
+        names = [n for n, p in model.named_parameters() if n.startswith(prefix)]
+        if not names or all(torch.equal(before[n], after[n]) for n in names):
+            fail(f"train: no parameter under {prefix} changed")
+    if launches["resize_normalize"] or launches["fused_bottleneck"]:
+        fail(f"train: the training path launched K1 or K2: {launches}")
+
+    # where a warm step goes: the trunk's passes alone, then one step traced
+    extra_batch = pairs[TRAIN_STEPS][0]
+    passes = train_trunk_passes(model, extra_batch, cfg)
+    lrs_next = current_lrs(cfg, 0, TRAIN_STEPS - 1, num_training_steps)
+    state, profile = traced_step(cfg, state, extra_batch, lrs_next)
+
+    # one more step with remat off: its peak memory
+    model.backbone[0].body.remat = False
+    torch.cuda.reset_peak_memory_stats()
+    off = timed_step(cfg)
+    state, _ = off(state, extra_batch, lrs_next, cfg.seed)
+    peak_no_remat = torch.cuda.max_memory_allocated() / 2**30
+    if not math.isfinite(off.metrics[0]["loss_total"]):
+        fail("train: non-finite loss with remat off")
+
+    warm = [s["step_s"] for s in step.split[1:]]
+    split = {k: float(np.median([s[k] for s in step.split[1:]]))
+             for k in ("forward_loss_s", "backward_s", "clip_opt_ema_s")}
+    line = {
+        "card": smi, "steps": len(step.split), "cold_step_s": step.split[0]["step_s"],
+        "warm_step_median_s": float(np.median(warm)), "warm_step_min_s": min(warm),
+        "warm_step_max_s": max(warm), "warm_split_median_s": split,
+        "warm_steps_s": warm, "peak_memory_gib_remat_on": peak_remat,
+        "peak_memory_gib_remat_off": peak_no_remat, "step_s_remat_off": off.split[0]["step_s"],
+        "grad_norm_pre_clip": [m["grad_norm"] for m in metrics_seen],
+        "loss_total": [m["loss_total"] for m in metrics_seen],
+        "params": n_params, "trainable_params": n_trainable, "build_s": build_s, "data_s": data_s,
+        "launches": launches, "trunk_passes_s": passes,
+        "phase_s": time.perf_counter() - phase_t0,
+    }
+    print(f"[train] {json.dumps(line)}", flush=True)
+    print(f"[train-profile] {json.dumps(profile)}", flush=True)
+    del state, model, step, off, pairs, samples
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1237,13 +1566,16 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
+    phase_train_small()
+    train_launches = phase_train(smi)
     probes = phase_probes()
     # the counts of the serving path, the HTTP server (int8_static + K2);
-    # the pipeline phase's beside them
+    # the pipeline's and the training path's beside them
     for entry, key in ((k1, "resize_normalize"), (k2, "fused_bottleneck")):
         entry["launches"] = launches[key]
         entry["launches_by_path"] = {"serve": launches[key],
-                                     "int8_static+fused pipeline": pipeline_launches[key]}
+                                     "int8_static+fused pipeline": pipeline_launches[key],
+                                     "train": train_launches[key]}
 
     print(f"[time] chip_smoke.py took {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": [k1, k2, *probes]}), flush=True)

@@ -460,3 +460,47 @@ def test_probes_reject_what_they_cannot_take():
     x, fold = fv.make_inputs(True, 1, 2, 512, 1024, 256, hwp=2 * 512 + 513, device="cuda")
     with pytest.raises(ValueError, match="shared memory"):
         flat_bottleneck(x, fold, "im2col", 2, 512)
+
+
+def test_train_step_on_the_card_matches_the_cpu():
+    """One dropout-free train step of a tiny model (B=2, ragged durations 8
+    and 7, fast branch, ``grad_accum=2``, clip, EMA) on the card and on the
+    CPU from the same weights and batch. SGD, so the update is linear in the
+    gradient: the loss terms and the pre-clip grad norm within rtol 1e-4
+    (float32 sums in another order, TF32 off), the post-step parameters and
+    EMA within atol 1e-6."""
+    require_cuda()
+    from tubedetr_tpu_torch.config import TubeDETRConfig
+    from tubedetr_tpu_torch.data.collate import collate_pairs
+    from tubedetr_tpu_torch.data.synthetic import make_synthetic_sample
+    from tubedetr_tpu_torch.models.tubedetr import build_model
+    from tubedetr_tpu_torch.parallel.train_step import create_train_state, make_train_step
+
+    cfg = TubeDETRConfig(
+        backbone="resnet14", hidden_dim=32, nheads=4, enc_layers=1, dec_layers=2,
+        dim_feedforward=64, video_max_len=8, video_max_len_train=8, stride=2,
+        max_text_len=8, text_vocab_size=128, text_hidden_size=32, text_layers=1,
+        text_heads=4, text_ffn=64, text_max_positions=40, batch_size=2, grad_accum=2,
+        optimizer="sgd", ema=True, ema_decay=0.9,
+    )
+    lrs = {"lr": 1e-2, "lr_backbone": 1e-3, "lr_text_encoder": 1e-2}
+    torch.manual_seed(0)
+    weights = build_model(cfg, device="cpu").state_dict()
+    samples = [make_synthetic_sample(i, t=8 - i, vocab=128) for i in range(2)]
+    ((batch, _),) = collate_pairs(samples, 2, 8, cfg.stride, cfg.max_text_len)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, device=dev)
+        model.load_state_dict(weights)
+        state = create_train_state(cfg, model)
+        state, metrics = make_train_step(cfg, deterministic=True)(state, batch, lrs, 0)
+        out[dev] = ({k: float(v) for k, v in metrics.items()},
+                    {n: p.detach().cpu() for n, p in model.named_parameters()},
+                    {n: e.cpu() for n, e in state.ema_params.items()})
+    (m_card, p_card, e_card), (m_cpu, p_cpu, e_cpu) = out["cuda"], out["cpu"]
+    assert set(m_card) == set(m_cpu)
+    for k in m_cpu:
+        np.testing.assert_allclose(m_card[k], m_cpu[k], rtol=1e-4, err_msg=k)
+    for n in p_cpu:
+        np.testing.assert_allclose(p_card[n].numpy(), p_cpu[n].numpy(), atol=1e-6, rtol=0, err_msg=n)
+        np.testing.assert_allclose(e_card[n].numpy(), e_cpu[n].numpy(), atol=1e-6, rtol=0, err_msg=n)

@@ -92,7 +92,9 @@ def test_new_int8_modules_are_scanned():
                 "ops/probe_mm.py", "ops/probe_bottleneck.py", "probes/__init__.py",
                 "probes/int8_matmul.py", "probes/fused_variants.py", "probes/mm_ablations.py",
                 "apps/serve.py", "apps/demo.py", "apps/cli.py", "eval/viou.py",
-                "data/annotations.py"):
+                "data/annotations.py", "data/synthetic.py", "losses/matcher.py",
+                "losses/criterion.py", "train/optim.py", "train/engine.py", "train/logging.py",
+                "train/checkpoint.py", "parallel/train_step.py"):
         assert os.path.join("tubedetr_tpu_torch", mod) in names
 
 

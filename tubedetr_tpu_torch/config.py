@@ -8,7 +8,9 @@ naming the ROADMAP item that will bring each. The int8 backbone modes
 ``int8`` and ``int8_static`` (with or without ``fused_bottleneck``) run on
 the frozen-BN ResNets; every ``fast_mode`` and ``num_queries > 1`` run,
 and ``validate()`` accepts and refuses those fields as the JAX package's
-does. ``apply_json_overlay`` is the CLI's ``--dataset_config``.
+does, the training fields (schedule, optimizer, ``grad_accum``) included.
+``validate_training`` adds what the JAX package refuses for training.
+``apply_json_overlay`` is the CLI's ``--dataset_config``.
 """
 
 from __future__ import annotations
@@ -177,6 +179,17 @@ class TubeDETRConfig:
         return self.replace(**clean)
 
     def validate(self) -> "TubeDETRConfig":
+        if self.schedule not in SCHEDULES:
+            raise ValueError(f"unknown schedule {self.schedule!r}; expected one of {SCHEDULES}")
+        if self.optimizer not in ("adam", "sgd"):
+            raise ValueError(f"unknown optimizer {self.optimizer!r}")
+        if self.grad_accum < 1:
+            raise ValueError(f"grad_accum must be >= 1, got {self.grad_accum}")
+        if self.batch_size % self.grad_accum != 0:
+            raise ValueError(
+                "batch_size must split into equal microbatches: batch_size="
+                f"{self.batch_size} % grad_accum={self.grad_accum} != 0"
+            )
         if self.fast_mode not in ("", "gating", "transformer", "pool", "noslow"):
             raise ValueError(f"unknown fast_mode {self.fast_mode!r}")
         if self.compute_dtype not in ("float32", "bfloat16"):
@@ -218,6 +231,11 @@ class TubeDETRConfig:
                 f"{self.backbone_quant_frozen!r}: int8_qat and the quantized "
                 "training passes come with ROADMAP queue 1 'Secondary features'"
             )
+        if self.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy={self.remat_policy!r}: the policies that save "
+                "part of a block come with ROADMAP queue 1 'Secondary features'"
+            )
         if self.backbone.startswith("timm_") or self.backbone.endswith("-gn"):
             raise NotImplementedError(
                 f"backbone {self.backbone!r}: the timm and GroupNorm "
@@ -235,3 +253,40 @@ class TubeDETRConfig:
                 "features'"
             )
         return self
+
+    def validate_training(self) -> "TubeDETRConfig":
+        """``validate()`` plus what training refuses: the post-training int8
+        modes (no gradient passes ``round()``), as the JAX package's
+        ``apps/train.py`` refuses them, and bfloat16 compute."""
+        self.validate()
+        if self.backbone_quant in ("int8", "int8_static"):
+            raise NotImplementedError(
+                f"backbone_quant={self.backbone_quant!r} trains nothing (zero "
+                "gradients through round()); use it for evaluation and serving"
+            )
+        if self.compute_dtype != "float32":
+            raise NotImplementedError(
+                "training in bfloat16 compute comes with ROADMAP queue 1 "
+                "'Secondary features'; train in float32"
+            )
+        return self
+
+
+SCHEDULES = ("step", "multistep", "linear_with_warmup", "all_linear_with_warmup")
+
+
+def loss_weight_dict(cfg: TubeDETRConfig) -> dict:
+    """Loss name -> coefficient, expanded for the aux decoder layers."""
+    wd = {"loss_bbox": cfg.bbox_loss_coef, "loss_giou": cfg.giou_loss_coef}
+    if cfg.sted:
+        wd["loss_sted"] = cfg.sted_loss_coef
+    if cfg.guided_attn:
+        wd["loss_guided_attn"] = cfg.guided_attn_loss_coef
+    if cfg.num_queries > 1:
+        wd["loss_objectness"] = cfg.objectness_loss_coef
+    if cfg.aux_loss:
+        aux = {}
+        for i in range(cfg.dec_layers - 1):
+            aux.update({f"{k}_{i}": v for k, v in wd.items()})
+        wd.update(aux)
+    return wd

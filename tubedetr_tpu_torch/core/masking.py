@@ -22,3 +22,31 @@ def downsample_pad_mask(mask: torch.Tensor, out_h: int, out_w: int) -> torch.Ten
     ys = (torch.arange(out_h, device=dev, dtype=torch.float32) * (h / out_h)).long()
     xs = (torch.arange(out_w, device=dev, dtype=torch.float32) * (w / out_w)).long()
     return mask[..., ys, :][..., :, xs]
+
+
+def time_pad_mask(durations: torch.Tensor, t: int) -> torch.Tensor:
+    """(B,) int durations -> (B, T) bool, True on frames past the duration."""
+    return torch.arange(t, device=durations.device)[None] >= durations[:, None]
+
+
+def clip_pad_mask(durations: torch.Tensor, n_clips: int, stride: int) -> torch.Tensor:
+    """(B,) durations -> (B, n_clips) bool, True on clips past ceil(dur / k)."""
+    n_valid = -(-durations // stride)
+    return torch.arange(n_clips, device=durations.device)[None] >= n_valid[:, None]
+
+
+def inter_positive_map(inter_idx: torch.Tensor, t: int) -> torch.Tensor:
+    """(B, 2) inclusive [start, end] moment indices -> (B, T) bool in-moment
+    map; a row with start < 0 (an empty intersection, [-100, -100]) is all
+    False."""
+    ar = torch.arange(t, device=inter_idx.device)[None]
+    start, end = inter_idx[:, 0:1], inter_idx[:, 1:2]
+    return (ar >= start) & (ar <= end) & (start >= 0)
+
+
+def force_first_valid(pad_mask: torch.Tensor) -> torch.Tensor:
+    """A copy of ``pad_mask`` with position 0 of the last axis valid, so no
+    row is all padding (the reference's "avoid empty masks")."""
+    out = pad_mask.clone()
+    out[..., 0] = False
+    return out

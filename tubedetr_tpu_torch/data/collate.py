@@ -4,7 +4,9 @@ Every video pads to exactly ``T`` frames and ``Tc = ceil(T / stride)`` clips,
 space pads to the batch's largest (bucketed) frame, and ragged structure is
 carried by boolean masks (True on padding). Masks, tokens and durations are
 built on the host; the frames stay tensors on the device they arrive on, so
-the serving path never copies pixels back to the host.
+the serving path never copies pixels back to the host. The training targets
+(``target_boxes``, ``inter_idx``, ``time_mask``) stay numpy arrays; the train
+step moves them to the device.
 
 ``split_video_into_clips`` is the evaluation's ``div_vid`` split of a long
 video into clips that share its id, so ``postprocess_sted`` ensembles them.
@@ -43,10 +45,16 @@ def collate(
     stride: int,
     max_text_len: int,
     with_fast: bool = True,
+    compact_pad_masks: bool = False,
 ) -> Dict:
-    """The model's input dict for ``samples``, plus ``time_mask`` (B, T),
-    True on valid frames. The slow stream is ``frames[::stride]`` and the
-    fast stream all frames. Frames and masks land on the frames' device."""
+    """The model's input dict for ``samples``, plus the targets:
+    ``time_mask`` (B, T), True on valid frames, ``target_boxes`` (B, T, 4)
+    cxcywh (zeros where a sample has none) and ``inter_idx`` (B, 2). The
+    slow stream is ``frames[::stride]`` and the fast stream all frames.
+    Frames and masks land on the frames' device. ``compact_pad_masks``
+    gives each frame's valid extent, ``{fast,slow}_valid_hw`` (B, T, 2),
+    in place of the dense pixel pad masks (``parallel/train_step.py:
+    expand_pad_masks`` rebuilds them)."""
     b = len(samples)
     tc = math.ceil(t / stride) if stride else t
     hmax = max(s.frames.shape[1] for s in samples)
@@ -58,6 +66,10 @@ def collate(
     frames_slow = torch.zeros((b, tc, hmax, wmax, 3), dtype=dtype, device=dev)
     fast_pad = np.ones((b, t, hmax, wmax), bool)
     slow_pad = np.ones((b, tc, hmax, wmax), bool)
+    fast_valid_hw = np.zeros((b, t, 2), np.int64)
+    slow_valid_hw = np.zeros((b, tc, 2), np.int64)
+    target_boxes = np.zeros((b, t, 4), np.float32)
+    inter_idx = np.full((b, 2), -100, np.int64)
     durations = np.zeros((b,), np.int64)
     time_mask = np.zeros((b, t), bool)
     tokens = np.zeros((b, max_text_len), np.int64)
@@ -69,10 +81,15 @@ def collate(
         vh, vw = s.valid_hw
         frames_fast[i, :st, :fh, :fw] = s.frames[:st]
         fast_pad[i, :st, :vh, :vw] = False
+        fast_valid_hw[i, :st] = (vh, vw)
         slow = s.frames[:st][::stride] if stride else s.frames[:st]
         sc = slow.shape[0]
         frames_slow[i, :sc, :fh, :fw] = slow
         slow_pad[i, :sc, :vh, :vw] = False
+        slow_valid_hw[i, :sc] = (vh, vw)
+        if s.boxes_cxcywh is not None:
+            target_boxes[i, :st] = s.boxes_cxcywh[:st]
+        inter_idx[i] = s.inter_idx
         durations[i] = st
         time_mask[i, :st] = True
         if s.tokens is not None:
@@ -85,15 +102,22 @@ def collate(
 
     batch = {
         "frames_slow": frames_slow,
-        "slow_pad_mask": on_dev(slow_pad),
         "tokens": on_dev(tokens),
         "text_pad_mask": on_dev(text_pad),
         "durations": on_dev(durations),
         "time_mask": time_mask,
+        "target_boxes": target_boxes,
+        "inter_idx": inter_idx,
     }
+    streams = {"slow": (slow_pad, slow_valid_hw)}
     if with_fast:
         batch["frames_fast"] = frames_fast
-        batch["fast_pad_mask"] = on_dev(fast_pad)
+        streams["fast"] = (fast_pad, fast_valid_hw)
+    for stream, (pad, valid_hw) in streams.items():
+        if compact_pad_masks:
+            batch[f"{stream}_valid_hw"] = on_dev(valid_hw)
+        else:
+            batch[f"{stream}_pad_mask"] = on_dev(pad)
     return batch
 
 
@@ -135,3 +159,32 @@ def split_video_into_clips(sample: VideoSample, clip_len: int) -> List[VideoSamp
             qtype=sample.qtype,
         ))
     return out
+
+
+def batch_meta(samples: List[VideoSample]) -> Dict:
+    """The host-side record of a batch that evaluation reads."""
+    return {
+        "frames_id": [list(s.frames_id) for s in samples],
+        "video_ids": [s.video_id for s in samples],
+        "captions": [s.caption for s in samples],
+        "qtypes": [s.qtype for s in samples],
+        "orig_sizes": [s.orig_size for s in samples],
+    }
+
+
+def collate_pairs(samples: List[VideoSample], batch_size: int, t: int, stride: int,
+                  max_text_len: int, div_vid: int = 0, with_fast: bool = True,
+                  compact_pad_masks: bool = False) -> List[tuple]:
+    """``(batch, meta)`` for each group of ``batch_size`` samples, in order.
+    With ``div_vid`` each sample is first cut into clips of ``div_vid``
+    frames (the evaluation's split; all clips of a group go into one batch)
+    and the batch is ``div_vid`` frames long."""
+    pairs = []
+    for i in range(0, len(samples), batch_size):
+        group = samples[i:i + batch_size]
+        if div_vid:
+            group = [c for s in group for c in split_video_into_clips(s, div_vid)]
+        batch = collate(group, div_vid or t, stride, max_text_len, with_fast=with_fast,
+                        compact_pad_masks=compact_pad_masks)
+        pairs.append((batch, batch_meta(group)))
+    return pairs

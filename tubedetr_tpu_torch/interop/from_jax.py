@@ -31,6 +31,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from tubedetr_tpu_torch.train.checkpoint import warm_start_surgery
+
 Tree = Dict
 
 
@@ -351,10 +353,6 @@ def load_reference_pth(model: torch.nn.Module, path: str) -> Tuple[list, list]:
         sd = ckpt["model"]
     else:
         sd = ckpt
-    sd = dict(sd)
-    nq = model.query_embed.weight.shape[0]
-    if "query_embed.weight" in sd and sd["query_embed.weight"].shape[0] > nq:
-        sd["query_embed.weight"] = sd["query_embed.weight"][:nq]
-    sd.pop("transformer.time_embed.te", None)
+    sd = warm_start_surgery(sd, model.query_embed.weight.shape[0])
     result = model.load_state_dict(sd, strict=False)
     return list(result.missing_keys), list(result.unexpected_keys)

@@ -15,6 +15,11 @@ bottleneck convs run s8 x s8 -> s32 on per-out-channel int8 weights
 ``(int8 NHWC tensor, f32 scale)``. The stem stays float; it is quantized with
 ``stem_act_max`` after the max pool. With ``fused_blocks`` the int8_static
 stride-1 tail blocks run as one K2 launch each (``ops/fused_bottleneck.py``).
+For training, the stem and layer1 are always frozen (``requires_grad``
+off, as the reference's backbone freezes them); with ``remat`` each block
+that holds a trainable weight runs under ``torch.utils.checkpoint`` while
+gradients are on, so its activations are recomputed in the backward.
+
 The calibrated maxima are non-persistent buffers (``stem_act_max``,
 ``layerI.J.conv2.act_max``, ``layerI.J.conv3.act_max``, ``layerI.J.out_max``),
 so the ``state_dict`` keeps the reference grammar; ``interop/from_jax.py``
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from tubedetr_tpu_torch.ops.fused_bottleneck import (
     fold_bottleneck,
@@ -191,13 +197,14 @@ class ResNet(nn.Module):
     3x3 convs by 2, its first block keeping the previous dilation of 1)."""
 
     def __init__(self, arch: str = "resnet101", dilation: bool = False,
-                 quant: str = "none", fused_blocks: bool = False):
+                 quant: str = "none", fused_blocks: bool = False, remat: bool = False):
         super().__init__()
         if arch not in STAGE_BLOCKS:
             raise NotImplementedError(f"backbone {arch!r}; expected one of {sorted(STAGE_BLOCKS)}")
         if quant not in QUANT_MODES:
             raise NotImplementedError(f"quant {quant!r}; expected one of {QUANT_MODES}")
         self.quant = quant
+        self.remat = remat
         self.observe = False  # int8: record activation maxima (calibration)
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm2d(64)
@@ -218,6 +225,8 @@ class ResNet(nn.Module):
                 for _ in range(1, n_blocks)
             ]
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
+        for frozen in (self.conv1, self.bn1, self.layer1):
+            frozen.requires_grad_(False)
         self.register_load_state_dict_post_hook(lambda module, _: module.clear_int8_cache())
 
     def blocks(self):
@@ -233,7 +242,11 @@ class ResNet(nn.Module):
         # pixel lies in some 3x3/s2 pad-1 window (same max either side)
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         if self.quant == "none":
-            x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+            for block in self.blocks():
+                if self.remat and torch.is_grad_enabled() and block.conv1.weight.requires_grad:
+                    x = checkpoint(block, x, use_reentrant=False)
+                else:
+                    x = block(x)
             return x.permute(0, 2, 3, 1)
         dtype = x.dtype
         x = x.permute(0, 2, 3, 1).contiguous()

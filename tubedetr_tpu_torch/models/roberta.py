@@ -3,7 +3,8 @@
 Module names follow HuggingFace ``RobertaModel`` (``embeddings.*``,
 ``encoder.layer.N.attention.self.query`` ...), the names under which the
 reference checkpoint stores its text encoder. Only ``last_hidden_state`` is
-computed: no pooler. Post-LN blocks, exact (erf) GELU.
+computed: no pooler. Post-LN blocks, exact (erf) GELU. Hidden and attention
+dropout (0.1) act in train mode, at the JAX module's sites.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from tubedetr_tpu_torch.models.layers import attend
+from tubedetr_tpu_torch.models.layers import Dropout, attend
 
 
 @dataclass(frozen=True)
@@ -28,6 +29,8 @@ class RobertaConfig:
     type_vocab_size: int = 1
     pad_token_id: int = 1
     ln_eps: float = 1e-5
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
 
 
 def roberta_position_ids(input_ids: torch.Tensor, pad_token_id: int) -> torch.Tensor:
@@ -55,6 +58,7 @@ class RobertaEmbeddings(nn.Module):
         self.position_embeddings = nn.Embedding(c.max_position_embeddings, c.hidden_size)
         self.token_type_embeddings = nn.Embedding(c.type_vocab_size, c.hidden_size)
         self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.ln_eps)
+        self.dropout = Dropout(c.hidden_dropout)
 
     def forward(self, input_ids, pad_mask):
         pos_ids = roberta_position_ids(
@@ -65,7 +69,7 @@ class RobertaEmbeddings(nn.Module):
             + self.position_embeddings(pos_ids)
             + self.token_type_embeddings(torch.zeros_like(input_ids))
         )
-        return self.LayerNorm(x)
+        return self.dropout(self.LayerNorm(x))
 
 
 class RobertaSelfAttention(nn.Module):
@@ -75,9 +79,11 @@ class RobertaSelfAttention(nn.Module):
         self.query = nn.Linear(c.hidden_size, c.hidden_size)
         self.key = nn.Linear(c.hidden_size, c.hidden_size)
         self.value = nn.Linear(c.hidden_size, c.hidden_size)
+        self.dropout = Dropout(c.attention_dropout) if c.attention_dropout > 0.0 else None
 
     def forward(self, x, key_pad_mask):
-        out, _ = attend(self.query(x), self.key(x), self.value(x), self.num_heads, key_pad_mask)
+        out, _ = attend(self.query(x), self.key(x), self.value(x), self.num_heads, key_pad_mask,
+                        self.dropout)
         return out
 
 
@@ -86,9 +92,10 @@ class RobertaAttention(nn.Module):
         super().__init__()
         self.self = RobertaSelfAttention(c)
         self.output = _Dense(c.hidden_size, c.hidden_size, c.ln_eps)
+        self.dropout = Dropout(c.hidden_dropout)
 
     def forward(self, x, key_pad_mask):
-        h = self.output.dense(self.self(x, key_pad_mask))
+        h = self.dropout(self.output.dense(self.self(x, key_pad_mask)))
         return self.output.LayerNorm(x + h)
 
 
@@ -98,11 +105,12 @@ class RobertaLayer(nn.Module):
         self.attention = RobertaAttention(c)
         self.intermediate = _Dense(c.hidden_size, c.intermediate_size)
         self.output = _Dense(c.intermediate_size, c.hidden_size, c.ln_eps)
+        self.dropout = Dropout(c.hidden_dropout)
 
     def forward(self, x, key_pad_mask):
         x = self.attention(x, key_pad_mask)
         h = F.gelu(self.intermediate.dense(x))  # exact erf GELU
-        return self.output.LayerNorm(x + self.output.dense(h))
+        return self.output.LayerNorm(x + self.dropout(self.output.dense(h)))
 
 
 class RobertaEncoder(nn.Module):

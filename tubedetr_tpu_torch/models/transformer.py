@@ -6,7 +6,8 @@ static gather ``clip = frame // stride``; time-aligned cross-attention folds
 T into the batch so frame i's query attends only frame i's memory. Post-LN
 blocks, ReLU FFNs, positions added to q/k only. Module names follow the
 reference (``encoder.layers.N``, ``decoder.layers.N.cross_attn_image``,
-norms 1/3/4 in the decoder). Inference only: dropout is not applied.
+norms 1/3/4 in the decoder). Dropout sits where the JAX modules apply it
+(``models/layers.py:Dropout``, active only in train mode).
 
 The time queries are frame-major for any ``num_queries`` (nq): frame i's
 queries sit at ``[i*nq, (i+1)*nq)`` of the ``T*nq`` query axis, and
@@ -35,7 +36,7 @@ from torch.nn import functional as F
 
 from tubedetr_tpu_torch.core.embeddings import time_embedding_sine
 from tubedetr_tpu_torch.core.masking import frame_to_clip
-from tubedetr_tpu_torch.models.layers import FeatureResizer, MultiHeadAttention
+from tubedetr_tpu_torch.models.layers import Dropout, FeatureResizer, MultiHeadAttention
 from tubedetr_tpu_torch.models.roberta import RobertaConfig, RobertaModel
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default, as in the reference's layers
@@ -44,19 +45,23 @@ LN_EPS = 1e-5  # torch nn.LayerNorm default, as in the reference's layers
 class EncoderLayer(nn.Module):
     """Post-LN encoder layer: self-attn(q=k=x+pos, v=x) + FFN."""
 
-    def __init__(self, d_model: int, nheads: int, dim_feedforward: int):
+    def __init__(self, d_model: int, nheads: int, dim_feedforward: int, dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, nheads)
+        self.self_attn = MultiHeadAttention(d_model, nheads, dropout)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.dropout = Dropout(dropout)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
 
     def forward(self, x, pos, key_pad_mask):
         qk = x + pos
         attn, weights = self.self_attn(qk, qk, x, key_pad_mask)
-        x = self.norm1(x + attn)
-        x = self.norm2(x + self.linear2(F.relu(self.linear1(x))))
+        x = self.norm1(x + self.dropout1(attn))
+        h = self.linear2(self.dropout(F.relu(self.linear1(x))))
+        x = self.norm2(x + self.dropout2(h))
         return x, weights
 
 
@@ -65,10 +70,10 @@ class Encoder(nn.Module):
     the ``fast_mode="transformer"`` branch has."""
 
     def __init__(self, num_layers: int, d_model: int, nheads: int, dim_feedforward: int,
-                 final_norm: bool = False):
+                 dropout: float = 0.0, final_norm: bool = False):
         super().__init__()
         self.layers = nn.ModuleList(
-            EncoderLayer(d_model, nheads, dim_feedforward) for _ in range(num_layers)
+            EncoderLayer(d_model, nheads, dim_feedforward, dropout) for _ in range(num_layers)
         )
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS) if final_norm else None
 
@@ -82,15 +87,19 @@ class DecoderLayer(nn.Module):
     """Temporal self-attention (TSA) across the T time queries, then
     time-aligned cross-attention, then FFN."""
 
-    def __init__(self, d_model: int, nheads: int, dim_feedforward: int):
+    def __init__(self, d_model: int, nheads: int, dim_feedforward: int, dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, nheads)
-        self.cross_attn_image = MultiHeadAttention(d_model, nheads)
+        self.self_attn = MultiHeadAttention(d_model, nheads, dropout)
+        self.cross_attn_image = MultiHeadAttention(d_model, nheads, dropout)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm4 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.dropout = Dropout(dropout)
+        self.dropout1 = Dropout(dropout)
+        self.dropout3 = Dropout(dropout)
+        self.dropout4 = Dropout(dropout)
 
     def forward(self, tgt, query_pos, memory, memory_pos, memory_pad_mask, query_pad_mask):
         """tgt/query_pos (B, T*nq, D), frame-major; memory/memory_pos
@@ -101,7 +110,7 @@ class DecoderLayer(nn.Module):
         nq = tq // t
         qk = tgt + query_pos
         sa, weights = self.self_attn(qk, qk, tgt, query_pad_mask)
-        tgt = self.norm1(tgt + sa)
+        tgt = self.norm1(tgt + self.dropout1(sa))
 
         # each frame's nq queries attend only that frame's memory tokens
         q = (tgt + query_pos).reshape(b * t, nq, d)
@@ -109,8 +118,9 @@ class DecoderLayer(nn.Module):
         ca, cross_weights = self.cross_attn_image(
             q, k, memory.reshape(b * t, s, d), memory_pad_mask.reshape(b * t, s)
         )
-        tgt = self.norm3(tgt + ca.reshape(b, tq, d))
-        tgt = self.norm4(tgt + self.linear2(F.relu(self.linear1(tgt))))
+        tgt = self.norm3(tgt + self.dropout3(ca.reshape(b, tq, d)))
+        h = self.linear2(self.dropout(F.relu(self.linear1(tgt))))
+        tgt = self.norm4(tgt + self.dropout4(h))
         return tgt, weights, cross_weights.reshape(b, tq, s)
 
 
@@ -118,10 +128,11 @@ class Decoder(nn.Module):
     """Decoder stack; every layer's output passes through the shared final
     ``norm`` (the aux heads read them all)."""
 
-    def __init__(self, num_layers: int, d_model: int, nheads: int, dim_feedforward: int):
+    def __init__(self, num_layers: int, d_model: int, nheads: int, dim_feedforward: int,
+                 dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
-            DecoderLayer(d_model, nheads, dim_feedforward) for _ in range(num_layers)
+            DecoderLayer(d_model, nheads, dim_feedforward, dropout) for _ in range(num_layers)
         )
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
@@ -143,7 +154,7 @@ class TubeDETRTransformer(nn.Module):
     (``transformer.text_encoder.*``); ``TubeDETR`` calls it directly."""
 
     def __init__(self, d_model=256, nheads=8, enc_layers=6, dec_layers=6,
-                 dim_feedforward=2048, video_max_len=200, stride=5, fast=True,
+                 dim_feedforward=2048, dropout=0.1, video_max_len=200, stride=5, fast=True,
                  fast_mode: str = "", text_cfg: RobertaConfig = RobertaConfig()):
         super().__init__()
         self.d_model = d_model
@@ -155,12 +166,12 @@ class TubeDETRTransformer(nn.Module):
         # noslow has no space-text encoder (and no weights for one)
         self.encoder = (
             None if fast_mode == "noslow"
-            else Encoder(enc_layers, d_model, nheads, dim_feedforward)
+            else Encoder(enc_layers, d_model, nheads, dim_feedforward, dropout)
         )
-        self.decoder = Decoder(dec_layers, d_model, nheads, dim_feedforward)
+        self.decoder = Decoder(dec_layers, d_model, nheads, dim_feedforward, dropout)
         if fast:
             self.fast_encoder = (
-                Encoder(1, d_model, nheads, dim_feedforward, final_norm=True)
+                Encoder(1, d_model, nheads, dim_feedforward, dropout, final_norm=True)
                 if fast_mode == "transformer" else nn.Linear(d_model, d_model)
             )
             if fast_mode in ("", "transformer", "pool"):

@@ -1,4 +1,4 @@
-"""TubeDETR inference model (counterpart of ``tubedetr_tpu/models/tubedetr.py``).
+"""TubeDETR (counterpart of ``tubedetr_tpu/models/tubedetr.py``).
 
 Module names follow the reference ``state_dict`` grammar: ``backbone.0.body.*``
 (the ResNet trunk), ``transformer.*`` (text encoder, encoder, decoder, fast
@@ -13,6 +13,16 @@ With ``num_queries > 1`` the canonical outputs (``pred_boxes``,
 logits and objectness logits come under ``*_queries``. The TSA weights are
 aggregated a frame, ``(B, T, T)`` (the mean over both query blocks, times
 nq), and the cross weights averaged over each frame's queries.
+
+``forward(train=True)`` takes the training semantics of the JAX model,
+separately from ``self.training`` (which switches dropout): the slow pass
+runs the backbone with gradients and the fast pass runs it under
+``torch.no_grad()``, reusing the detached slow features for every k-th
+frame with ``share_backbone_train``. ``train=False`` shares one backbone
+pass between the streams (``share_backbone_inference``). The stem and
+layer1 are always frozen, the whole trunk with ``freeze_backbone`` or
+``lr_backbone <= 0``, and the text encoder with ``freeze_text_encoder``
+(which also keeps it in eval mode and out of the graph).
 """
 
 from __future__ import annotations
@@ -25,7 +35,12 @@ from torch.nn import functional as F
 
 from tubedetr_tpu_torch.config import TubeDETRConfig
 from tubedetr_tpu_torch.core.embeddings import position_embedding_sine
-from tubedetr_tpu_torch.core.masking import downsample_pad_mask
+from tubedetr_tpu_torch.core.masking import (
+    clip_pad_mask,
+    downsample_pad_mask,
+    force_first_valid,
+    time_pad_mask,
+)
 from tubedetr_tpu_torch.models.layers import MLP
 from tubedetr_tpu_torch.models.resnet import FrozenBatchNorm2d, ResNet
 from tubedetr_tpu_torch.models.roberta import RobertaConfig
@@ -50,7 +65,7 @@ class TubeDETR(nn.Module):
         d = cfg.hidden_dim
         self.backbone = nn.ModuleList([_Backbone(ResNet(
             cfg.backbone, cfg.dilation, quant=cfg.backbone_quant,
-            fused_blocks=cfg.fused_bottleneck,
+            fused_blocks=cfg.fused_bottleneck, remat=cfg.remat_backbone,
         ))])
         self.input_proj = nn.Conv2d(2048, d, kernel_size=1)
         self.query_embed = nn.Embedding(cfg.num_queries, d)
@@ -60,6 +75,7 @@ class TubeDETR(nn.Module):
             enc_layers=cfg.enc_layers,
             dec_layers=cfg.dec_layers,
             dim_feedforward=cfg.dim_feedforward,
+            dropout=cfg.dropout,
             video_max_len=cfg.video_max_len_train,
             stride=cfg.stride,
             fast=cfg.fast,
@@ -75,9 +91,20 @@ class TubeDETR(nn.Module):
         )
         self.bbox_embed = MLP(d, d, 4, 3)
         if cfg.sted:
-            self.sted_embed = MLP(d, d, 2, 2)
+            self.sted_embed = MLP(d, d, 2, 2, dropout=0.5)
         if cfg.num_queries > 1:  # the per-(frame, query) objectness logit
             self.objectness_embed = MLP(d, d, 1, 2)
+        if cfg.freeze_backbone or cfg.lr_backbone <= 0:
+            self.backbone.requires_grad_(False)
+        if cfg.freeze_text_encoder:
+            self.transformer.text_encoder.requires_grad_(False)
+
+    def train(self, mode: bool = True) -> "TubeDETR":
+        """Dropout on or off; a frozen text encoder stays in eval mode."""
+        super().train(mode)
+        if self.cfg.freeze_text_encoder:
+            self.transformer.text_encoder.eval()
+        return self
 
     def cast_compute(self, dtype: torch.dtype) -> "TubeDETR":
         """Cast parameters to the compute dtype. FrozenBatchNorm buffers stay
@@ -93,14 +120,22 @@ class TubeDETR(nn.Module):
                 p.data = p.data.to(dtype)
         return self
 
+    def backbone_feats(self, frames: torch.Tensor) -> torch.Tensor:
+        """The trunk over a flat (N, H, W, 3) frame batch -> (N, h, w, 2048)."""
+        return self.backbone[0].body(frames.to(self.input_proj.weight.dtype))
+
     def encode_frames(self, frames: torch.Tensor, pad_mask: torch.Tensor):
-        """Backbone + projection over a flat (N, H, W, 3) frame batch.
+        """Backbone + projection over a flat (N, H, W, 3) frame batch
+        (``backbone_feats``, then ``project_frames``)."""
+        return self.project_frames(self.backbone_feats(frames), pad_mask)
+
+    def project_frames(self, feats: torch.Tensor, pad_mask: torch.Tensor):
+        """Projection + masks over (N, h, w, 2048) trunk features.
 
         Returns tokens (N, h*w, D), feature pad mask (N, h*w) and the sine
         position embedding (N, h*w, D); ``pad_mask`` is the (N, H, W) pixel
         pad mask."""
         dtype = self.input_proj.weight.dtype
-        feats = self.backbone[0].body(frames.to(dtype))  # (N, h, w, 2048)
         n, h, w, _ = feats.shape
         d = self.cfg.hidden_dim
         fmask = downsample_pad_mask(pad_mask, h, w)
@@ -117,6 +152,7 @@ class TubeDETR(nn.Module):
         durations: torch.Tensor,  # (B,) int
         frames_fast: Optional[torch.Tensor] = None,  # (B, T, H, W, 3)
         fast_pad_mask: Optional[torch.Tensor] = None,  # (B, T, H, W)
+        train: bool = False,
     ) -> dict:
         cfg = self.cfg
         d = cfg.hidden_dim
@@ -129,7 +165,8 @@ class TubeDETR(nn.Module):
         # frames (collate builds them so), so one backbone pass over the fast
         # stream serves both: slow tokens are a ::k gather of the fast tokens.
         share = (
-            cfg.share_backbone_inference
+            not train
+            and cfg.share_backbone_inference
             and cfg.fast
             and frames_fast is not None
             and cfg.stride > 0
@@ -146,18 +183,17 @@ class TubeDETR(nn.Module):
             src = fast_src[:, :: cfg.stride][:, :tc]
             src_mask = frame_pad[:, :: cfg.stride][:, :tc]
             pos = fpos.reshape(b, t, hw, d)[:, :: cfg.stride][:, :tc]
-        else:
-            src, src_mask, pos = self.encode_frames(
-                frames_slow.flatten(0, 1), slow_pad_mask.flatten(0, 1)
-            )
+        else:  # the slow pass, with gradients into the trunk
+            slow_feats = self.backbone_feats(frames_slow.flatten(0, 1))
+            src, src_mask, pos = self.project_frames(slow_feats, slow_pad_mask.flatten(0, 1))
             hw = src.shape[1]
             src, src_mask, pos = (
                 src.reshape(b, tc, hw, d), src_mask.reshape(b, tc, hw), pos.reshape(b, tc, hw, d)
             )
             if cfg.fast and frames_fast is not None:
-                fsrc, fmask, _ = self.encode_frames(
-                    frames_fast.flatten(0, 1), fast_pad_mask.flatten(0, 1)
-                )
+                with torch.no_grad():
+                    feats = self._fast_feats(frames_fast, slow_feats, tc)
+                fsrc, fmask, _ = self.project_frames(feats, fast_pad_mask.flatten(0, 1))
                 fast_src = fsrc.reshape(b, t, hw, d)
                 frame_pad = fmask.reshape(b, t, hw)
             else:  # replicate each clip's feature mask onto its frames
@@ -165,14 +201,14 @@ class TubeDETR(nn.Module):
 
         # temporal padding: clips past ceil(dur/k) and frames past the
         # duration are fully masked; clip position 0 always stays valid
-        n_clips_valid = -(-durations // k)
-        clip_pad = torch.arange(tc, device=dev)[None] >= n_clips_valid[:, None]
-        src_mask = src_mask | clip_pad[:, :, None]
-        src_mask[:, :, 0] = False  # avoid empty masks
-        time_pad = torch.arange(t, device=dev)[None] >= durations[:, None]
-        frame_pad = frame_pad | time_pad[:, :, None]
+        src_mask = force_first_valid(src_mask | clip_pad_mask(durations, tc, k)[:, :, None])
+        frame_pad = frame_pad | time_pad_mask(durations, t)[:, :, None]
 
-        text_memory = self.transformer.text_encoder(tokens, text_pad_mask)
+        if cfg.freeze_text_encoder:
+            with torch.no_grad():
+                text_memory = self.transformer.text_encoder(tokens, text_pad_mask)
+        else:
+            text_memory = self.transformer.text_encoder(tokens, text_pad_mask)
         tr = self.transformer(
             src=src,
             src_pad_mask=src_mask,
@@ -209,6 +245,33 @@ class TubeDETR(nn.Module):
             if cfg.sted:
                 out.update(pred_sted_queries=sted_q[-1], aux_pred_sted_queries=sted_q[:-1])
         return out
+
+
+    def _fast_feats(self, frames_fast: torch.Tensor, slow_feats: torch.Tensor, tc: int):
+        """Trunk features of every fast frame, (B*T, h, w, 2048), without
+        gradients. With ``share_backbone_train`` every k-th frame reuses its
+        slow feature (collate builds ``slow = fast[::k]``) and the trunk runs
+        on the other k-1 of every k; the frame axis is padded to ``tc*k`` so
+        clips reshape evenly, and the pad frames are sliced away."""
+        cfg = self.cfg
+        b, t = frames_fast.shape[:2]
+        k = max(cfg.stride, 1)
+        if not (cfg.share_backbone_train and cfg.stride > 0 and tc == -(-t // k)):
+            return self.backbone_feats(frames_fast.flatten(0, 1))
+        slow = slow_feats.detach()
+        if k == 1:  # the fast stream is the slow stream
+            return slow
+        ff = frames_fast
+        if tc * k > t:
+            ff = F.pad(ff, (0, 0, 0, 0, 0, 0, 0, tc * k - t))
+        rest = ff.reshape((b, tc, k) + ff.shape[2:])[:, :, 1:].flatten(0, 2)
+        rest = self.backbone_feats(rest)
+        fh, fw, fc = rest.shape[1:]
+        comb = torch.cat(
+            [slow.reshape(b, tc, 1, fh, fw, fc).to(rest.dtype), rest.reshape(b, tc, k - 1, fh, fw, fc)],
+            dim=2,
+        )
+        return comb.reshape(b, tc * k, fh, fw, fc)[:, :t].flatten(0, 1)
 
 
 def build_model(cfg: TubeDETRConfig, device="cuda") -> TubeDETR:

@@ -57,7 +57,23 @@ line:
    alone, peak memory with remat on and off, the pre-clip grad norms, beside
    the card's name and power limit; ``[train-profile]``: one warm step under
    ``torch.profiler``;
-9. the probes P1-P5 (``tubedetr_tpu_torch/probes``): both entry points at
+9. the train CLI (``phase_cli``, ``phase_cli_small``): ``apps/train.py:main``
+   at the published training config over a VidSTG-layout set it writes (4
+   train and 2 val videos of 200 frames of 360x640): one epoch with three
+   loader threads and the side-stream prefetcher (one warm step traced),
+   eval and vIoU, ``checkpoint.pth``; ``--resume`` of it for epoch 1 (the
+   step count continued); an ``--eval --load`` with int8_static and K2 (29
+   launches a val forward, K2 held exactly to its plain version on the
+   inputs it got); ``GroundingPipeline.reload`` of the checkpoint with the
+   eval's scales embedded and one request (no calibration; K1 once, K2 29
+   times, K2 exact again). The ``[cli]`` line: host seconds a sample, the
+   loader's wait a step with ``--device_prefetch`` 2 and 0, the warm CLI
+   step and the frame sizes sampled, one batch's upload pinned and
+   pageable, the traced step's device busy share, peak memory, the
+   seconds a checkpoint save blocks (sync and async), vIoU, launches; then
+   ``[cli-small]``: the tiny CLI card against CPU (``log.txt`` losses within
+   ``TRAIN_LOSS_RTOL``, vIoU within 1e-3);
+10. the probes P1-P5 (``tubedetr_tpu_torch/probes``): both entry points at
    the scripts' full shapes with their launch counts zeroed just before and
    read just after, each kernel held exactly to its plain version, and
    noshift and convonly timed beside K2 at layer3's serving shape. They run
@@ -69,7 +85,8 @@ line:
 
 Then the script's seconds, one ``kernels`` JSON line (each kernel's
 ``launches`` counted on phase 6's path, and by path: serve, the int8 + K2
-pipeline, train), the ``nvidia-smi`` line again, and,
+pipeline, train, the CLI's int8 eval and its reload request), the
+``nvidia-smi`` line again, and,
 last, the ``ok`` JSON line. There is no CPU path: without a card the script exits 2.
 """
 
@@ -128,6 +145,11 @@ TRAIN_T, TRAIN_HW = 200, (224, 398)
 TRAIN_STEPS = 6  # train_one_epoch's steps at full width: one cold, five warm
 TRAIN_LOSS_RTOL = 1e-4  # card vs CPU, loss terms and grad norm: float32 sums in another order
 TRAIN_PARAM_ATOL = 2e-5  # card vs CPU after one AdamW step (tests/test_torch_train.py's bound)
+# the CLI phase: train and val videos of a VidSTG-layout set, each clip's frames, and
+# the train step traced (0 is the cold one)
+CLI_VIDEOS = (4, 2)
+CLI_CLIP = (200, 360, 640)
+CLI_PROFILE_STEP = 2
 
 
 def fail(msg: str) -> None:
@@ -1369,18 +1391,13 @@ def train_trunk_passes(model, batch, cfg):
             "slow_frames": slow.shape[0], "fast_frames_run": slow.shape[0] * (max(cfg.stride, 1) - 1)}
 
 
-def traced_step(cfg, state, batch, lrs, top: int = 12):
-    """One warm train step under ``torch.profiler``, device activities only
-    (a host trace of the step's ~10^4 ops costs tens of seconds to
-    aggregate): the sum of the times of the kernels and copies against the
-    step's wall time (the device's busy share, one stream; the trace's
-    overhead counts in the wall time), and the ``top`` of them by time."""
+def device_profile(prof, wall_s: float, top: int = 12) -> dict:
+    """A device-activities ``torch.profiler`` trace read against the host
+    wall time of what it traced: the sum of the times of the kernels and
+    copies (the device's busy share, one stream; the trace's overhead counts
+    in the wall time), and the ``top`` of them by time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    step = timed_step(cfg)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        state, _ = step(state, batch, lrs, cfg.seed)
     rows = []
     for e in prof.key_averages():
         # a record_function range (the optimizer's step) also shows on the
@@ -1393,12 +1410,23 @@ def traced_step(cfg, state, batch, lrs, top: int = 12):
         rows.append((us, e.key, e.count))
     rows.sort(reverse=True)
     device_s = sum(r[0] for r in rows) / 1e6
-    wall_s = step.split[0]["step_s"]
-    return state, {
+    return {
         "step_s_traced": wall_s, "device_kernel_s": device_s,
         "device_busy_share": device_s / wall_s if wall_s else None,
         "top_kernels": [{"name": k[:90], "s": us / 1e6, "calls": n} for us, k, n in rows[:top]],
     }
+
+
+def traced_step(cfg, state, batch, lrs, top: int = 12):
+    """One warm train step under ``torch.profiler``, device activities only
+    (a host trace of the step's ~10^4 ops costs tens of seconds to
+    aggregate), read by ``device_profile``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step = timed_step(cfg)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch, lrs, cfg.seed)
+    return state, device_profile(prof, step.split[0]["step_s"], top)
 
 
 def phase_train(smi: str):
@@ -1521,6 +1549,302 @@ def phase_train(smi: str):
     torch.cuda.empty_cache()
     return launches
 
+def cli_args(data: str, out: str, *extra) -> list:
+    """The train CLI's argv over a VidSTG-layout directory, EMA on."""
+    return ["--combine_datasets", "vidstg", "--combine_datasets_val", "vidstg",
+            "--vidstg_ann_path", data, "--vidstg_vid_path", data, "--ema", "--output-dir", out,
+            *extra]
+
+
+def log_lines(out: str) -> list:
+    with open(os.path.join(out, "log.txt")) as f:
+        return [json.loads(line) for line in f]
+
+
+class K2Capture:
+    """Inside, the int8 trunk's K2 calls go through a wrapper that keeps the
+    first ``(xq, fold, dilation)`` of each shape (the wrapped function still
+    counts each launch); ``check`` then holds K2 to its plain version on
+    those real inputs, launches that come after the counts are read."""
+
+    def __enter__(self):
+        from tubedetr_tpu_torch.models import resnet
+
+        self.module, self.orig, self.seen = resnet, resnet.fused_bottleneck_block, {}
+
+        def capture(xq, fold, dilation=1):
+            key = (*xq.shape, dilation)
+            if key not in self.seen:
+                self.seen[key] = (xq.clone(), fold, dilation)
+            return self.orig(xq, fold, dilation)
+
+        resnet.fused_bottleneck_block = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.module.fused_bottleneck_block = self.orig
+        return False
+
+    def check(self) -> dict:
+        import torch
+
+        from tubedetr_tpu_torch.ops.fused_bottleneck import fused_bottleneck_plain
+
+        out = {}
+        for (n, h, w, c, d), (xq, fold, _) in sorted(self.seen.items()):
+            got, so = self.orig(xq, fold, d)
+            ref = fused_bottleneck_plain(xq, fold, d)
+            err = (got.short() - ref.short()).abs().max().item()
+            out[f"{n}x{h}x{w}x{c}/d{d}"] = err
+            if err != 0 or not torch.equal(got, ref) or float(so) != float(fold.so):
+                fail(f"cli: K2 at the CLI's shape {(n, h, w, c, d)} differs from its plain "
+                     f"version, max |err| {err}")
+        self.seen.clear()
+        return out
+
+
+def upload_seconds(cfg, sample, tokenizer) -> dict:
+    """Seconds (median of 5, between synchronizes) to copy one collated CLI
+    batch of ``sample`` to the card from pinned memory (``non_blocking``)
+    and from pageable memory, and its bytes."""
+    import numpy as np
+    import torch
+
+    from tubedetr_tpu_torch.data.collate import collate
+
+    out = {}
+    for pinned in (True, False):
+        batch = collate([sample], cfg.video_max_len, cfg.stride, cfg.max_text_len,
+                        tokenizer=tokenizer, pin_memory=pinned)
+        tensors = [torch.as_tensor(v) for v in batch.values()]
+        tensors = [t.pin_memory() if pinned else t for t in tensors]
+        secs = [synced(lambda: [t.to("cuda", non_blocking=pinned) for t in tensors])[1]
+                for _ in range(5)]
+        out["pinned" if pinned else "pageable"] = float(np.median(secs))
+    out["bytes"] = sum(t.numel() * t.element_size() for t in tensors)
+    return out
+
+
+def phase_cli(smi: str):
+    """The train and eval CLI (``apps/train.py:main``) at the published
+    training config (the JAX ``config.py`` defaults: ResNet-101,
+    RoBERTa-base, resolution 224, 200 frames at stride 5, B=1, float32, EMA,
+    remat) over a VidSTG-layout directory written here: ``CLI_VIDEOS``
+    train and val videos, each a seeded uint8 200x360x640 ``.npy`` at 5
+    fps with the synthetic drifting square (about 830 MB, deleted at the
+    end). In turn: (1) train one epoch with three loader threads and
+    ``--device_prefetch 2``, one warm step traced, then eval and vIoU,
+    ``checkpoint.pth``; (2) ``--resume`` it for epoch 1 with the same-thread
+    feed and ``--async_checkpoint``; (3) ``--eval --load`` the checkpoint
+    with int8_static and K2 (a ``--dataset_config`` overlay), K2 held to its
+    plain version on the inputs it got (the data path does not bucket: maps
+    of 53x94 to 7x12); (4) ``GroundingPipeline.reload`` of the checkpoint
+    with the eval's scales embedded on an int8 + K2 pipeline, and one
+    request (K1 pads to the bucket: maps of 56x96 to 7x12), K2 held to its
+    plain version again. Returns the launches of K1 and K2 on the
+    int8 eval and on the reload request."""
+    import numpy as np
+    import torch
+
+    from tubedetr_tpu_torch.apps import train
+    from tubedetr_tpu_torch.apps.cli import config_from_args
+    from tubedetr_tpu_torch.apps.pipeline import GroundingPipeline
+    from tubedetr_tpu_torch.data.datasets import build_dataset
+    from tubedetr_tpu_torch.data.synthetic import write_vidstg_dir
+    from tubedetr_tpu_torch.models.quantize import model_qscales
+    from tubedetr_tpu_torch.models.tokenizer import build_tokenizer
+    from tubedetr_tpu_torch.ops.fused_bottleneck import fused_bottleneck_block
+    from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize
+    from tubedetr_tpu_torch.train import checkpoint
+
+    phase_t0 = time.perf_counter()
+    root = os.path.join(HERE, "tubedetr_tpu_torch", "build", "cli")
+    shutil.rmtree(root, ignore_errors=True)
+    data, out = os.path.join(root, "vidstg"), os.path.join(root, "out")
+    line = {"card": smi}
+
+    def counts():
+        return {"resize_normalize": resize_normalize.launches,
+                "fused_bottleneck": fused_bottleneck_block.launches}
+
+    def zero():
+        resize_normalize.launches = fused_bottleneck_block.launches = 0
+
+    try:
+        cfg = config_from_args(cli_args(data, out))
+        t0 = time.perf_counter()
+        write_vidstg_dir(data, *CLI_VIDEOS, t=CLI_CLIP[0], h=CLI_CLIP[1], w=CLI_CLIP[2], seed=11,
+                         video_max_len_train=cfg.video_max_len_train)
+        line["write_data_s"] = time.perf_counter() - t0
+        tok = build_tokenizer(cfg.tokenizer_path, cfg.text_vocab_size)
+        items, sets = {}, {}
+        for split in ("train", "val"):
+            ds = sets[split] = build_dataset("vidstg", split, cfg, tok)
+            items[split] = [synced(lambda: ds[i])[1] for i in range(2)]
+        line["getitem_s"] = items
+
+        upload = upload_seconds(cfg, sets["train"][0], tok)
+
+        # (1) train one epoch, eval, checkpoint
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        run1 = train.RunStats(profile_step=CLI_PROFILE_STEP)
+        _, run1_s = synced(lambda: train.main(cli_args(
+            data, out, "--epochs", "1", "--num_workers", "3", "--device_prefetch", "2"), run1))
+        launches_train = counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if launches_train["resize_normalize"] or launches_train["fused_bottleneck"]:
+            fail(f"cli: the float train run launched K1 or K2: {launches_train}")
+        if [r["epoch"] for r in log_lines(out)] != [0] or run1.state.step != CLI_VIDEOS[0]:
+            fail(f"cli: train run logged {log_lines(out)}, step {run1.state.step}")
+        # warm steps: the first run's, the traced one aside, and the resumed run's
+        warm = [s["step_s"] for i, s in enumerate(run1.steps) if i not in (0, CLI_PROFILE_STEP)]
+        prof = device_profile(run1.profile, run1.steps[CLI_PROFILE_STEP]["step_s"])
+        del run1.state
+        torch.cuda.empty_cache()
+
+        # (2) resume for epoch 1: the same-thread feed, the async writer
+        zero()
+        run2 = train.RunStats()
+        out2 = os.path.join(root, "resumed")
+        _, run2_s = synced(lambda: train.main(cli_args(
+            data, out2, "--epochs", "2", "--resume", os.path.join(out, "checkpoint.pth"),
+            "--num_workers", "3", "--device_prefetch", "0", "--async_checkpoint"), run2))
+        warm += [s["step_s"] for s in run2.steps[1:]]
+        if [r["epoch"] for r in log_lines(out2)] != [1] or run2.state.step != 2 * CLI_VIDEOS[0]:
+            fail(f"cli: the resumed run logged {log_lines(out2)}, step {run2.state.step}; "
+                 f"expected epoch 1 and step {2 * CLI_VIDEOS[0]}")
+        del run2.state
+        torch.cuda.empty_cache()
+
+        # (3) the int8 + K2 eval of the checkpoint
+        overlay = os.path.join(root, "int8.json")
+        with open(overlay, "w") as f:
+            json.dump({"backbone_quant": "int8_static", "fused_bottleneck": True}, f)
+        run3 = train.RunStats()
+        zero()
+        with K2Capture() as cap:
+            _, run3_s = synced(lambda: train.main(cli_args(
+                data, os.path.join(root, "int8"), "--eval", "--load",
+                os.path.join(out, "checkpoint.pth"), "--dataset_config", overlay,
+                "--qscales_dir", os.path.join(root, "qscales"), "--num_workers", "3",
+                "--device_prefetch", "2"), run3))
+            launches_eval = counts()
+        k2_cli = cap.check()
+        if launches_eval != {"resize_normalize": 0,
+                             "fused_bottleneck": K2_PER_PASS * CLI_VIDEOS[1]}:
+            fail(f"cli: the int8 eval launched {launches_eval}; expected K2 {K2_PER_PASS} "
+                 f"times for each of the {CLI_VIDEOS[1]} val forwards, K1 never")
+        scales = model_qscales(run3.state.model)
+        del run3.state
+        torch.cuda.empty_cache()
+
+        # (4) reload the checkpoint, its scales embedded, and serve one request
+        ck = checkpoint.load_checkpoint(os.path.join(out, "checkpoint.pth"))
+        ck["qscales"] = {k: torch.tensor(v) for k, v in scales.items()}
+        ck["optimizer"] = None  # serving reads no optimizer state
+        with_scales = os.path.join(root, "checkpoint_int8.pth")
+        checkpoint.save_checkpoint(with_scales, ck)
+        del ck
+        pipe = GroundingPipeline(cfg.replace(backbone_quant="int8_static", fused_bottleneck=True))
+        pipe.reload(with_scales)
+        if pipe._needs_calibration or pipe.qscales_source != "checkpoint":
+            fail("cli: the reload of a checkpoint with scales still asks for calibration")
+        zero()
+        with K2Capture() as cap:
+            result, request_s = synced(lambda: pipe.ground(
+                os.path.join(data, "val0.npy"), "the red square moving on the left",
+                render=False))
+            launches_reload = counts()
+        k2_cli.update(cap.check())
+        if launches_reload != {"resize_normalize": 1, "fused_bottleneck": K2_PER_PASS}:
+            fail(f"cli: the reload request launched {launches_reload}; expected K1 once, "
+                 f"K2 {K2_PER_PASS} times")
+        if pipe.calibration_s or pipe.qscales_source != "checkpoint":
+            fail("cli: the reloaded pipeline calibrated")
+        s_, e_ = result["sted"]
+        boxes = np.asarray(result["boxes"])
+        if not (0 <= s_ < e_ <= CLI_CLIP[0]) or boxes.shape != (CLI_CLIP[0], 4) \
+                or not np.isfinite(boxes).all():
+            fail(f"cli: reload request gave segment {result['sted']}, boxes {boxes.shape}")
+        del pipe
+
+        line.update({
+            "frame_hw_sampled": sorted(set(run1.frame_hw + run2.frame_hw)),
+            "train_run_s": run1_s, "resume_run_s": run2_s, "int8_eval_run_s": run3_s,
+            "warm_step_median_s": float(np.median(warm)), "warm_steps_s": warm,
+            "cold_step_s": run1.steps[0]["step_s"], "resumed_first_step_s": run2.steps[0]["step_s"],
+            "loader_wait_s_prefetch2": [s["wait_s"] for s in run1.steps],
+            "loader_wait_s_prefetch0": [s["wait_s"] for s in run2.steps],
+            "upload_s": upload,
+            "upload_share_of_warm_step": {k: upload[k] / float(np.median(warm))
+                                          for k in ("pinned", "pageable")},
+            "profiled_step": {k: v for k, v in prof.items() if k != "top_kernels"},
+            "peak_memory_gib_train": peak,
+            "checkpoint_blocking_s": {"sync": run1.checkpoint_s, "async": run2.checkpoint_s},
+            "viou": {"train": run1.evals, "resumed": run2.evals, "int8_eval": run3.evals},
+            "launches": {"train": launches_train, "int8_eval": launches_eval,
+                         "reload_request": launches_reload},
+            "k2_cli_shapes_max_abs_err": k2_cli,
+            "reload_request_s": request_s, "reload_segment": result["sted"],
+        })
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    line["phase_s"] = time.perf_counter() - phase_t0
+    print(f"[cli] {json.dumps(line)}", flush=True)
+    print(f"[cli-profile] {json.dumps(prof['top_kernels'])}", flush=True)
+    return {"int8_eval": launches_eval, "reload_request": launches_reload}
+
+
+def phase_cli_small():
+    """The train CLI at a tiny config on the card and on the CPU from the
+    same seed and data, one epoch with ``--dropout 0`` and the dropout-free
+    step (RoBERTa's own dropout does not follow ``--dropout``, and the two
+    devices' masks differ): the ``log.txt`` losses within
+    ``TRAIN_LOSS_RTOL``, the vIoU summaries within 1e-3."""
+    import functools
+
+    from tubedetr_tpu_torch.apps import train
+    from tubedetr_tpu_torch.data.synthetic import write_vidstg_dir
+    from tubedetr_tpu_torch.parallel import train_step
+
+    root = os.path.join(HERE, "tubedetr_tpu_torch", "build", "cli-small")
+    shutil.rmtree(root, ignore_errors=True)
+    data = write_vidstg_dir(os.path.join(root, "vidstg"), 4, 2, t=20, h=60, w=80, seed=3,
+                            video_max_len_train=20)
+    tiny = ["--backbone", "resnet14", "--hidden_dim", "32", "--nheads", "4", "--enc_layers", "1",
+            "--dec_layers", "1", "--dim_feedforward", "64", "--video_max_len", "20",
+            "--video_max_len_train", "20", "--stride", "4", "--resolution", "128",
+            "--max_text_len", "12", "--text_vocab_size", "128", "--text_hidden_size", "32",
+            "--text_layers", "1", "--text_heads", "4", "--text_ffn", "64", "--batch_size", "2",
+            "--epochs", "1", "--dropout", "0", "--num_workers", "2", "--device_prefetch", "2"]
+    make = train_step.make_train_step
+    train_step.make_train_step = functools.partial(make, deterministic=True)
+    logs = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(root, dev)
+            if train.main(cli_args(data, out, *tiny, "--device", dev)) != 0:
+                fail(f"cli small: the {dev} run failed")
+            (logs[dev],) = log_lines(out)
+    finally:
+        train_step.make_train_step = make
+        shutil.rmtree(root, ignore_errors=True)
+    card, cpu = logs["cuda"], logs["cpu"]
+    losses = [k for k in cpu if k.startswith("train_loss")]
+    viou = [k for k in cpu if k.startswith("test_")]
+    loss_err = max(abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in losses)
+    viou_err = max(abs(card[k] - cpu[k]) for k in viou)
+    print(f"[cli-small] {json.dumps({'max_rel_err_losses': loss_err, 'viou_max_abs_diff': viou_err, 'card': card})}",
+          flush=True)
+    if set(card) != set(cpu) or not losses or not viou:
+        fail(f"cli small: log keys differ card {sorted(card)} vs CPU {sorted(cpu)}")
+    if not loss_err <= TRAIN_LOSS_RTOL:
+        fail(f"cli small: losses differ card vs CPU by {loss_err} (relative)")
+    if not viou_err <= 1e-3:
+        fail(f"cli small: vIoU summaries differ card vs CPU by {viou_err}")
+
 
 def main() -> int:
     try:
@@ -1568,14 +1892,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_small()
     train_launches = phase_train(smi)
+    cli_launches = phase_cli(smi)
+    phase_cli_small()
     probes = phase_probes()
     # the counts of the serving path, the HTTP server (int8_static + K2);
-    # the pipeline's and the training path's beside them
+    # the pipeline's, the training path's and the CLI's beside them
     for entry, key in ((k1, "resize_normalize"), (k2, "fused_bottleneck")):
         entry["launches"] = launches[key]
         entry["launches_by_path"] = {"serve": launches[key],
                                      "int8_static+fused pipeline": pipeline_launches[key],
-                                     "train": train_launches[key]}
+                                     "train": train_launches[key],
+                                     "cli int8 eval": cli_launches["int8_eval"][key],
+                                     "cli reload request": cli_launches["reload_request"][key]}
 
     print(f"[time] chip_smoke.py took {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": [k1, k2, *probes]}), flush=True)

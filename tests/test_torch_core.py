@@ -83,9 +83,7 @@ def test_eval_transform_and_bucket_match_jax(h, w, res):
     np.testing.assert_array_equal(got.boxes_xyxy, ref.boxes_xyxy)
     for x in (got.out_h, got.out_w, 1, 32, 33):
         assert transforms.bucket(x) == jax_transforms.bucket(x)
-    assert transforms.EVAL_MAX_SIZE == {
-        r: t["max_size"] for r, t in jax_transforms.RESOLUTION_TABLES.items()
-    }
+    assert transforms.RESOLUTION_TABLES == jax_transforms.RESOLUTION_TABLES
 
 
 def test_collate_masks_and_tokens_match_jax():

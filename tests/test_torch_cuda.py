@@ -1,10 +1,12 @@
 """Tests of the port that need an NVIDIA GPU, marked ``cuda``.
 
 They hold the CUDA kernels (K1, resize+normalize; K2, the fused int8
-bottleneck; the probes P1-P5) to their plain PyTorch versions on the card,
-and the pipeline on the card (float, and int8_static + K2) to the pipeline
-on the CPU; the HTTP server on the card coalesces two concurrent requests
-into one forward. This file imports
+bottleneck, also at the train CLI's layer maps; the probes P1-P5) to their
+plain PyTorch versions on the card, and the pipeline on the card (float,
+and int8_static + K2) to the pipeline on the CPU; the HTTP server on the
+card coalesces two concurrent requests into one forward; the data
+pipeline's ``DevicePrefetcher`` gives the batches a synchronous copy gives.
+This file imports
 nothing of JAX, so it also runs on a machine with only PyTorch:
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -504,3 +506,60 @@ def test_train_step_on_the_card_matches_the_cpu():
     for n in p_cpu:
         np.testing.assert_allclose(p_card[n].numpy(), p_cpu[n].numpy(), atol=1e-6, rtol=0, err_msg=n)
         np.testing.assert_allclose(e_card[n].numpy(), e_cpu[n].numpy(), atol=1e-6, rtol=0, err_msg=n)
+
+
+# the train CLI's layer maps at resolution 224 for 360x640 clips: the eval
+# transform gives 210x373 frames; serving pads them to 224x384 (K1's bucket),
+# the data path does not (as the JAX package's collate)
+K2_CLI_MAPS = {  # (height, width, planes)
+    "bucketed-layer1": (56, 96, 64), "bucketed-layer2": (28, 48, 128),
+    "bucketed-layer3": (14, 24, 256), "bucketed-layer4": (7, 12, 512),
+    "data-layer1": (53, 94, 64), "data-layer2": (27, 47, 128),
+}
+
+
+@pytest.mark.parametrize("case", list(K2_CLI_MAPS))
+def test_k2_exact_at_the_cli_layer_maps(case):
+    """K2 equals its plain version bit for bit at the layer maps of the CLI's
+    int8 eval and of a reload request at resolution 224, one launch each."""
+    require_cuda()
+    h, w, planes = K2_CLI_MAPS[case]
+    xq, fold = k2_inputs(8, h, w, planes, seed=5)
+    cfold = fold_to(fold, "cuda")
+    before = fused_bottleneck_block.launches
+    out, so = fused_bottleneck_block(xq.cuda(), cfold, 1)
+    torch.cuda.synchronize()
+    assert fused_bottleneck_block.launches == before + 1
+    assert float(so) == float(fold.so)
+    assert torch.equal(out.cpu(), fused_bottleneck_plain(xq.cuda(), cfold, 1).cpu())
+
+
+def test_device_prefetcher_on_the_card_matches_a_synchronous_copy():
+    """Pinned batches copied on the prefetcher's side stream give, on the
+    consumer's default stream, the tensors of a synchronous ``.to("cuda")``;
+    the consumer's work runs on the default stream while the next copies
+    run on the side stream, and the freed batches' memory is not handed
+    back under a step that still reads it (each step checks its batch
+    after a long kernel)."""
+    require_cuda()
+    from tubedetr_tpu_torch.data.loader import DataLoader, DevicePrefetcher
+    from tubedetr_tpu_torch.data.synthetic import SyntheticDataset
+
+    ds = SyntheticDataset(n=9, t=8, h=96, w=128, seed=2, vocab=128)
+    kw = dict(batch_size=2, t=8, stride=2, max_text_len=6)
+    sync = [({k: torch.as_tensor(v).cuda() for k, v in b.items()}, m)
+            for b, m in DataLoader(ds, **kw)]
+    feed = DevicePrefetcher(DataLoader(ds, num_workers=2, pin_memory=True, **kw), size=2)
+    big = torch.randn(4096, 4096, device="cuda")
+    seen = 0
+    for (batch, meta), (want, want_meta) in zip(feed, sync):
+        assert torch.cuda.current_stream() == torch.cuda.default_stream()
+        assert meta == want_meta
+        for _ in range(3):  # a slow step on the default stream
+            big = torch.tanh(big @ big / 64)
+        for k, v in want.items():
+            assert batch[k].device.type == "cuda"
+            assert torch.equal(batch[k], v), k
+        seen += 1
+    assert seen == len(sync) == 5
+    assert torch.isfinite(big).all()

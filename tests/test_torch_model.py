@@ -157,9 +157,9 @@ def test_state_dict_round_trips_through_convert_tubedetr():
 
 
 def test_load_reference_pth_prefers_ema_and_truncates_queries(tmp_path):
-    """``load_reference_pth``: EMA weights over ``model``, extra queries
+    """``train/checkpoint.py:load_pretrained``: EMA weights over ``model``, extra queries
     dropped, the sine time-embedding buffer ignored, non-strict."""
-    from tubedetr_tpu_torch.interop.from_jax import load_reference_pth
+    from tubedetr_tpu_torch.train.checkpoint import load_pretrained
 
     cfg = TubeDETRConfig(**TINY)
     model = build_model(cfg, device="cpu")
@@ -169,7 +169,7 @@ def test_load_reference_pth_prefers_ema_and_truncates_queries(tmp_path):
     del sd["bbox_embed.layers.0.bias"]
     path = str(tmp_path / "checkpoint.pth")
     torch.save({"model": {k: v + 1 for k, v in sd.items()}, "model_ema": sd}, path)
-    missing, unexpected = load_reference_pth(model, path)
+    missing, unexpected = load_pretrained(model, path)
     assert missing == ["bbox_embed.layers.0.bias"] and unexpected == []
     got = model.state_dict()
     torch.testing.assert_close(got["query_embed.weight"], sd["query_embed.weight"][:1])

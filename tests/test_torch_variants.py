@@ -6,7 +6,7 @@ run through ``tubedetr_tpu.models.tubedetr.TubeDETR`` and the port's
 moved with ``params_from_jax``) and the same numpy inputs; every output key,
 ``*_queries`` and ``pred_obj_queries`` included, agrees to the atol of
 ``tests/test_torch_model.py``. The variants' weight names round-trip through
-the JAX package's ``convert_tubedetr`` and load with ``load_reference_pth``,
+the JAX package's ``convert_tubedetr`` and load with ``load_pretrained``,
 and ``validate()`` accepts and refuses what the JAX one does.
 """
 
@@ -17,7 +17,8 @@ import torch
 from tests.test_torch_model import ATOL, T, TINY, jax_forward, make_batch, port_forward, port_model
 from tubedetr_tpu.config import TubeDETRConfig as JaxConfig
 from tubedetr_tpu_torch.config import TubeDETRConfig
-from tubedetr_tpu_torch.interop.from_jax import load_reference_pth, params_from_jax
+from tubedetr_tpu_torch.interop.from_jax import params_from_jax
+from tubedetr_tpu_torch.train.checkpoint import load_pretrained
 from tubedetr_tpu_torch.models.postprocess import (
     select_query_by_objectness,
     select_query_by_sted,
@@ -72,7 +73,7 @@ def _objectness_by_hand(sd):
 def test_variant_state_dict_round_trips_and_loads(tmp_path, name):
     """Port ``state_dict`` -> ``convert_tubedetr`` -> ``params_from_jax``
     gives every tensor back; the same names load through
-    ``load_reference_pth`` with none missing; variables of another variant
+    ``load_pretrained`` with none missing; variables of another variant
     are refused."""
     from tubedetr_tpu.interop.torch_convert import convert_tubedetr
 
@@ -92,7 +93,7 @@ def test_variant_state_dict_round_trips_and_loads(tmp_path, name):
     path = str(tmp_path / "checkpoint.pth")
     torch.save({"model": sd}, path)
     fresh = build_model(cfg, device="cpu")
-    missing, unexpected = load_reference_pth(fresh, path)
+    missing, unexpected = load_pretrained(fresh, path)
     assert missing == [] and unexpected == []
     for k, v in fresh.state_dict().items():
         torch.testing.assert_close(v, sd[k], rtol=0, atol=0, msg=k)

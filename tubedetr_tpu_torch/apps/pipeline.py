@@ -9,8 +9,8 @@ the masks and tokens are built on the host, and only the outputs come back.
 
 An ``int8_static`` backbone calibrates its activation scales on the first
 forward (one observer pass, ``models/quantize.py``) unless a sidecar for this
-config and these weights is in ``cfg.qscales_dir``; a ``reload`` recalibrates
-the same way.
+config and these weights is in ``cfg.qscales_dir``; a ``reload`` serves with
+the scales its checkpoint carries, or recalibrates the same way.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from tubedetr_tpu_torch.config import TubeDETRConfig
 from tubedetr_tpu_torch.data.collate import VideoSample, collate, model_inputs
 from tubedetr_tpu_torch.data.decode import decode_video, encode_video, probe
 from tubedetr_tpu_torch.data.transforms import bucket, make_eval_transform
-from tubedetr_tpu_torch.interop.from_jax import fabricate_state_dict, load_reference_pth
+from tubedetr_tpu_torch.interop.from_jax import fabricate_state_dict
 from tubedetr_tpu_torch.models.postprocess import postprocess_boxes, postprocess_sted
 from tubedetr_tpu_torch.models.quantize import (
     file_weights_tag,
@@ -36,6 +36,7 @@ from tubedetr_tpu_torch.models.quantize import (
 from tubedetr_tpu_torch.models.tokenizer import build_tokenizer
 from tubedetr_tpu_torch.models.tubedetr import COMPUTE_DTYPES, build_model
 from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize
+from tubedetr_tpu_torch.train.checkpoint import load_checkpoint, load_pretrained
 from tubedetr_tpu_torch.utils.device import configure_precision, resolve_device
 
 
@@ -78,22 +79,35 @@ class GroundingPipeline:
         self._weights_tag = f"fabricate-torch-seed{seed}"
         self._needs_calibration = cfg.backbone_quant == "int8_static"
         self.calibration_s = 0.0  # host seconds of the last calibration
+        self.qscales_source = None  # "checkpoint", "cache" or "calibrated" once set
         self.forwards = 0  # batched forwards run (``forward`` calls)
         if cfg.load:
             self.reload(cfg.load)
 
     def reload(self, path: Optional[str] = None) -> str:
-        """Swap weights in place from a reference ``.pth`` (non-strict). An
-        int8_static backbone recalibrates on the next forward unless a
-        sidecar for these weights exists (a ``.pth`` carries no scales)."""
+        """Swap weights in place from a ``.pth``: the port's own checkpoint
+        (``train/checkpoint.py``) or a reference one, its EMA weights when it
+        has them, loaded non-strictly after the warm-start surgery. A
+        checkpoint that carries calibrated int8 scales (``qscales``) serves
+        with them and runs no observer pass; otherwise an int8_static
+        backbone recalibrates on the next forward unless a sidecar for these
+        weights exists."""
         path = path or self.cfg.load
         if not path:
             raise ValueError("no checkpoint path configured or given")
-        missing, _ = load_reference_pth(self.model, path)
+        ckpt = load_checkpoint(path)
+        missing, _ = load_pretrained(self.model, ckpt)
         if missing:
             print(f"[load] {len(missing)} tensors kept as they were (e.g. {missing[:5]})")
         self._weights_tag = file_weights_tag(path)
-        self._needs_calibration = self.cfg.backbone_quant == "int8_static"
+        qscales = ckpt.get("qscales")
+        if self.cfg.backbone_quant == "int8_static" and qscales:
+            set_model_qscales(self.model, qscales)
+            self._needs_calibration, self.qscales_source = False, "checkpoint"
+            print("[quant] int8 scales from the checkpoint")
+        else:
+            self._needs_calibration = self.cfg.backbone_quant == "int8_static"
+            self.qscales_source = None
         return path
 
     def set_qscales(self, flat: dict) -> None:
@@ -111,7 +125,7 @@ class GroundingPipeline:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.calibration_s = time.perf_counter() - t0
-        self._needs_calibration = False
+        self._needs_calibration, self.qscales_source = False, source
         print(f"[quant] int8 scales {source}")
 
     # -- inference --------------------------------------------------------

@@ -6,7 +6,8 @@ A dependency-free ``http.server`` app over ``GroundingPipeline``:
 * ``GET /stvg?video=...&question=...&start=...&end=...`` grounds a caption
   in a video: an HTML page around the rendered tube when ffmpeg wrote one,
   else the JSON result; ``&format=json`` forces JSON;
-* ``GET/POST /reload[?ckpt=path]`` swaps in a reference ``.pth``;
+* ``GET/POST /reload[?ckpt=path]`` swaps in a ``.pth``, the port's own
+  checkpoint (its embedded int8 scales included) or a reference one;
 * ``GET /media/<name>`` serves rendered artifacts from the output dir;
 * ``GET /healthz`` answers without model work; ``GET /stats`` gives the
   request and error counts, latency quantiles over a sliding window, the

@@ -1,11 +1,14 @@
 """Typed configuration, the port's copy of ``tubedetr_tpu/config.py``.
 
 The field set is the JAX package's, so one keyword dict configures both
-(the parity tests rely on that). Fields that only the JAX package's training,
-mesh or TPU paths read are kept for that interchange; the port ignores them.
-``validate()`` additionally rejects the settings this port does not run yet,
-naming the ROADMAP item that will bring each. The int8 backbone modes
-``int8`` and ``int8_static`` (with or without ``fused_bottleneck``) run on
+(the parity tests rely on that). Fields that choose only how the JAX
+package lays its work out on the TPU, with the same result, are kept for
+that interchange: ``space_to_depth_stem`` and ``unroll_quant_fast`` change
+nothing here, and ``scan_backbone_blocks`` picks only the layout of a
+qscales tree. ``validate()`` rejects every setting this port does not run
+yet, naming the ROADMAP item that will bring each: the mesh and sharding
+fields other than their defaults among them, so none passes unread. The
+int8 backbone modes ``int8`` and ``int8_static`` (with or without ``fused_bottleneck``) run on
 the frozen-BN ResNets; every ``fast_mode`` and ``num_queries > 1`` run,
 and ``validate()`` accepts and refuses those fields as the JAX package's
 does, the training fields (schedule, optimizer, ``grad_accum``) included.
@@ -194,6 +197,8 @@ class TubeDETRConfig:
             raise ValueError(f"unknown fast_mode {self.fast_mode!r}")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
+        if self.frames_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown frames_dtype {self.frames_dtype!r}")
         if self.hidden_dim % self.nheads != 0:
             raise ValueError("hidden_dim must be a multiple of nheads")
         if self.num_queries < 1:
@@ -230,6 +235,21 @@ class TubeDETRConfig:
                 f"{self.backbone_quant_fast!r}, backbone_quant_frozen="
                 f"{self.backbone_quant_frozen!r}: int8_qat and the quantized "
                 "training passes come with ROADMAP queue 1 'Secondary features'"
+            )
+        if (self.mesh_data, self.mesh_time, self.mesh_model) != (1, 1, 1) or (
+            self.shard_optimizer_state or self.shard_params
+        ):
+            raise NotImplementedError(
+                f"mesh_data={self.mesh_data}, mesh_time={self.mesh_time}, mesh_model="
+                f"{self.mesh_model}, shard_optimizer_state={self.shard_optimizer_state}, "
+                f"shard_params={self.shard_params}: data, time and tensor parallelism and "
+                "sharded state come with ROADMAP queue 1 'Multi-GPU'; the port runs on one "
+                "device (mesh axes 1, nothing sharded)"
+            )
+        if self.log_quant_drift or self.recalibrate_each_epoch:
+            raise NotImplementedError(
+                "--log_quant_drift and --recalibrate_each_epoch act on the quantized "
+                "training passes, which come with ROADMAP queue 1 'Secondary features'"
             )
         if self.remat_policy != "full":
             raise NotImplementedError(

@@ -3,10 +3,13 @@
 Every video pads to exactly ``T`` frames and ``Tc = ceil(T / stride)`` clips,
 space pads to the batch's largest (bucketed) frame, and ragged structure is
 carried by boolean masks (True on padding). Masks, tokens and durations are
-built on the host; the frames stay tensors on the device they arrive on, so
-the serving path never copies pixels back to the host. The training targets
-(``target_boxes``, ``inter_idx``, ``time_mask``) stay numpy arrays; the train
-step moves them to the device.
+built on the host. The frames stay tensors on the device they arrive on, so
+the serving path never copies pixels back to the host; numpy frames from the
+data pipeline become CPU tensors in ``frames_dtype``, in pinned memory when
+the caller asks (``pin_memory``: the loader's batches then copy to the card
+without a staging copy). The training targets (``target_boxes``,
+``inter_idx``, ``time_mask``) stay numpy arrays; the train step moves them
+to the device.
 
 ``split_video_into_clips`` is the evaluation's ``div_vid`` split of a long
 video into clips that share its id, so ``postprocess_sted`` ensembles them.
@@ -21,12 +24,14 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from tubedetr_tpu_torch.models.tokenizer import EOS
+
 
 @dataclass
 class VideoSample:
     """One decoded and spatially transformed video."""
 
-    frames: torch.Tensor  # (t, H, W, 3) normalized, padded to the size bucket
+    frames: torch.Tensor  # (t, H, W, 3) normalized (a tensor, or numpy from the data pipeline)
     valid_hw: tuple  # (h, w) valid pixel extent inside (H, W)
     frames_id: List[int]  # real frame ids, len == t
     video_id: object
@@ -39,6 +44,20 @@ class VideoSample:
     qtype: str = "declarative"
 
 
+FRAMES_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
+
+
+def resolve_frames_dtype(name) -> torch.dtype:
+    """'float32' | 'bfloat16' -> the batch's frame dtype. bfloat16 halves
+    the frames' upload; the model casts its inputs to the compute dtype, so
+    with ``compute_dtype=bfloat16`` the result is the same."""
+    if isinstance(name, torch.dtype):
+        return name
+    if str(name) not in FRAMES_DTYPES:
+        raise ValueError(f"unknown frames_dtype {name!r}; expected float32 or bfloat16")
+    return FRAMES_DTYPES[str(name)]
+
+
 def collate(
     samples: List[VideoSample],
     t: int,
@@ -46,6 +65,9 @@ def collate(
     max_text_len: int,
     with_fast: bool = True,
     compact_pad_masks: bool = False,
+    frames_dtype=None,
+    tokenizer=None,
+    pin_memory: bool = False,
 ) -> Dict:
     """The model's input dict for ``samples``, plus the targets:
     ``time_mask`` (B, T), True on valid frames, ``target_boxes`` (B, T, 4)
@@ -54,16 +76,23 @@ def collate(
     Frames and masks land on the frames' device. ``compact_pad_masks``
     gives each frame's valid extent, ``{fast,slow}_valid_hw`` (B, T, 2),
     in place of the dense pixel pad masks (``parallel/train_step.py:
-    expand_pad_masks`` rebuilds them)."""
+    expand_pad_masks`` rebuilds them). ``frames_dtype`` (default: the
+    frames' own) is the batch's frame dtype; a sample without tokens is
+    encoded with ``tokenizer`` (cut to ``max_text_len``, keeping ``</s>``).
+    ``pin_memory`` puts a CPU batch's tensors in pinned memory."""
     b = len(samples)
     tc = math.ceil(t / stride) if stride else t
-    hmax = max(s.frames.shape[1] for s in samples)
-    wmax = max(s.frames.shape[2] for s in samples)
-    dev = samples[0].frames.device
-    dtype = samples[0].frames.dtype
+    frames = [torch.from_numpy(s.frames) if isinstance(s.frames, np.ndarray) else s.frames
+              for s in samples]
+    hmax = max(f.shape[1] for f in frames)
+    wmax = max(f.shape[2] for f in frames)
+    dev = frames[0].device
+    dtype = frames[0].dtype if frames_dtype is None else resolve_frames_dtype(frames_dtype)
+    pin = pin_memory and dev.type == "cpu"
 
-    frames_fast = torch.zeros((b, t, hmax, wmax, 3), dtype=dtype, device=dev)
-    frames_slow = torch.zeros((b, tc, hmax, wmax, 3), dtype=dtype, device=dev)
+    frames_fast = (torch.zeros((b, t, hmax, wmax, 3), dtype=dtype, device=dev, pin_memory=pin)
+                   if with_fast else None)
+    frames_slow = torch.zeros((b, tc, hmax, wmax, 3), dtype=dtype, device=dev, pin_memory=pin)
     fast_pad = np.ones((b, t, hmax, wmax), bool)
     slow_pad = np.ones((b, tc, hmax, wmax), bool)
     fast_valid_hw = np.zeros((b, t, 2), np.int64)
@@ -75,14 +104,15 @@ def collate(
     tokens = np.zeros((b, max_text_len), np.int64)
     text_pad = np.ones((b, max_text_len), bool)
 
-    for i, s in enumerate(samples):
-        st = min(s.frames.shape[0], t)
-        fh, fw = s.frames.shape[1:3]
+    for i, (s, f) in enumerate(zip(samples, frames)):
+        st = min(f.shape[0], t)
+        fh, fw = f.shape[1:3]
         vh, vw = s.valid_hw
-        frames_fast[i, :st, :fh, :fw] = s.frames[:st]
+        if with_fast:
+            frames_fast[i, :st, :fh, :fw] = f[:st]
         fast_pad[i, :st, :vh, :vw] = False
         fast_valid_hw[i, :st] = (vh, vw)
-        slow = s.frames[:st][::stride] if stride else s.frames[:st]
+        slow = f[:st][::stride] if stride else f[:st]
         sc = slow.shape[0]
         frames_slow[i, :sc, :fh, :fw] = slow
         slow_pad[i, :sc, :vh, :vw] = False
@@ -96,9 +126,16 @@ def collate(
             lt = min(len(s.tokens), max_text_len)
             tokens[i, :lt] = s.tokens[:lt]
             text_pad[i, :lt] = False
+        elif tokenizer is not None:
+            ids = tokenizer.encode(s.caption)
+            if len(ids) > max_text_len:  # keep the trailing </s>, as HF truncation does
+                ids = ids[: max_text_len - 1] + [EOS]
+            tokens[i, : len(ids)] = ids
+            text_pad[i, : len(ids)] = False
 
     def on_dev(a):
-        return torch.from_numpy(a).to(dev)
+        x = torch.from_numpy(a).to(dev)
+        return x.pin_memory() if pin else x
 
     batch = {
         "frames_slow": frames_slow,
@@ -174,7 +211,7 @@ def batch_meta(samples: List[VideoSample]) -> Dict:
 
 def collate_pairs(samples: List[VideoSample], batch_size: int, t: int, stride: int,
                   max_text_len: int, div_vid: int = 0, with_fast: bool = True,
-                  compact_pad_masks: bool = False) -> List[tuple]:
+                  compact_pad_masks: bool = False, frames_dtype=None) -> List[tuple]:
     """``(batch, meta)`` for each group of ``batch_size`` samples, in order.
     With ``div_vid`` each sample is first cut into clips of ``div_vid``
     frames (the evaluation's split; all clips of a group go into one batch)
@@ -185,6 +222,6 @@ def collate_pairs(samples: List[VideoSample], batch_size: int, t: int, stride: i
         if div_vid:
             group = [c for s in group for c in split_video_into_clips(s, div_vid)]
         batch = collate(group, div_vid or t, stride, max_text_len, with_fast=with_fast,
-                        compact_pad_masks=compact_pad_masks)
+                        compact_pad_masks=compact_pad_masks, frames_dtype=frames_dtype)
         pairs.append((batch, batch_meta(group)))
     return pairs

@@ -22,6 +22,10 @@ class DecodeError(RuntimeError):
     pass
 
 
+def have_ffmpeg() -> bool:
+    return FFMPEG is not None
+
+
 def probe(video_path: str) -> dict:
     """ffprobe metadata: width/height/fps/duration."""
     if FFPROBE is None:

@@ -1,5 +1,6 @@
-"""Weights into the port: from the JAX package's variable trees, from a seed,
-or from a reference TubeDETR ``.pth``.
+"""Weights into the port: from the JAX package's variable trees or from a
+seed (a reference TubeDETR ``.pth`` loads through
+``train/checkpoint.py:load_pretrained``).
 
 ``params_from_jax`` is the inverse of the JAX package's
 ``interop/torch_convert.py:convert_tubedetr``: it takes the ``{"params",
@@ -26,12 +27,11 @@ interchange between the two packages.
 from __future__ import annotations
 
 import re
-from typing import Dict, Tuple
+from typing import Dict
 
 import numpy as np
 import torch
 
-from tubedetr_tpu_torch.train.checkpoint import warm_start_surgery
 
 Tree = Dict
 
@@ -338,21 +338,3 @@ def fabricate_state_dict(model: torch.nn.Module, seed: int = 0) -> Dict[str, tor
             v = rng.standard_normal(t.shape, dtype=np.float32) * np.float32(0.02)
         out[name] = torch.from_numpy(v)
     return out
-
-
-def load_reference_pth(model: torch.nn.Module, path: str) -> Tuple[list, list]:
-    """Load a reference TubeDETR checkpoint into ``model``, non-strict: the
-    EMA weights when the file has them, else ``model``, else the file as a
-    bare state_dict; ``query_embed`` truncated to the model's queries and the
-    regenerated sine time-embedding buffer dropped. Returns the (missing,
-    unexpected) key lists; a shape mismatch raises."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    if ckpt.get("model_ema") is not None:
-        sd = ckpt["model_ema"]
-    elif "model" in ckpt:
-        sd = ckpt["model"]
-    else:
-        sd = ckpt
-    sd = warm_start_surgery(sd, model.query_embed.weight.shape[0])
-    result = model.load_state_dict(sd, strict=False)
-    return list(result.missing_keys), list(result.unexpected_keys)

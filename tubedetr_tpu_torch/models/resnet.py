@@ -106,16 +106,30 @@ def quantize_act(x: torch.Tensor, act_max: torch.Tensor, mode: str, observe: boo
     return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
 
 
+def _weights_key(*tensors):
+    """What a cache derived from ``tensors`` is valid for: each tensor
+    object, its storage and its version. Swapped-in weights (the EMA's,
+    through ``functional_call`` or a ``.data`` swap) or weights changed in
+    place (an optimizer step, ``load_state_dict``) give another key."""
+    return tuple((t, t.data_ptr(), -1 if t.is_inference() else t._version) for t in tensors)
+
+
+def _same_key(a, b) -> bool:
+    return a is not None and len(a) == len(b) and all(
+        x[0] is y[0] and x[1:] == y[1:] for x, y in zip(a, b))
+
+
 def _int8_weight(conv: nn.Conv2d):
-    """(wq (O, kh*kw*I) int8, sw (O,) f32) of ``conv``, quantized from its
-    float weight once and cached on the module until the weights change."""
+    """(wq (O, kh*kw*I) int8, sw (O,) f32) of ``conv``, quantized from the
+    float weight it holds now and cached on the module for that weight."""
+    key = _weights_key(conv.weight)
     cached = getattr(conv, "_int8", None)
-    if cached is None or cached[0].device != conv.weight.device:
+    if cached is None or not _same_key(cached[0], key):
         hwio = conv.weight.detach().float().permute(2, 3, 1, 0)
         wq, sw = quantize_weight(hwio)
-        cached = (wq.permute(3, 0, 1, 2).reshape(wq.shape[3], -1).contiguous(), sw)
+        cached = (key, wq.permute(3, 0, 1, 2).reshape(wq.shape[3], -1).contiguous(), sw)
         conv._int8 = cached
-    return cached
+    return cached[1:]
 
 
 def qconv(conv: nn.Conv2d, xq: torch.Tensor, sx: torch.Tensor, dtype) -> torch.Tensor:
@@ -169,15 +183,18 @@ class Bottleneck(nn.Module):
         float work in ``dtype``. Stride-1 tails of an int8_static trunk with
         ``fused`` go through K2 (the conditions of the JAX ``Bottleneck``)."""
         if self.fused and mode == "int8_static" and self.downsample is None and self.stride == 1:
-            if self._fold is None:  # static scales: the fold is a constant
-                self._fold = fold_bottleneck(
+            # static scales: the fold is a constant of the weights and norms it was made from
+            key = _weights_key(*(t for i in (1, 2, 3) for t in (
+                getattr(self, f"conv{i}").weight, *getattr(self, f"bn{i}").buffers())))
+            if self._fold is None or not _same_key(self._fold[0], key):
+                self._fold = (key, fold_bottleneck(
                     sx,
                     {f"conv{i}": getattr(self, f"conv{i}").weight.detach().float().permute(2, 3, 1, 0)
                      for i in (1, 2, 3)},
                     {f"bn{i}": getattr(self, f"bn{i}").fold() for i in (1, 2, 3)},
                     self.conv2.act_max, self.conv3.act_max, self.out_max,
-                )
-            return fused_bottleneck_block(xq, self._fold, self.dilation)
+                ))
+            return fused_bottleneck_block(xq, self._fold[1], self.dilation)
         out = F.relu(self.bn1.channels_last(qconv(self.conv1, xq, sx, dtype)))
         q, s = quantize_act(out, self.conv2.act_max, mode, observe)
         out = F.relu(self.bn2.channels_last(qconv(self.conv2, q, s, dtype)))

@@ -4,8 +4,8 @@ Module names follow the reference ``state_dict`` grammar: ``backbone.0.body.*``
 (the ResNet trunk), ``transformer.*`` (text encoder, encoder, decoder, fast
 branch), ``input_proj`` (a 1x1 conv), ``query_embed``, ``bbox_embed`` and
 ``sted_embed`` (and ``objectness_embed`` when ``num_queries > 1``); a
-reference ``.pth`` loads as it is (``interop/from_jax.py:
-load_reference_pth``). Inputs are normalized NHWC frames plus masks, as
+reference ``.pth`` loads as it is (``train/checkpoint.py:
+load_pretrained``). Inputs are normalized NHWC frames plus masks, as
 ``data/collate.py`` builds them; the text is pre-tokenized to static length.
 
 With ``num_queries > 1`` the canonical outputs (``pred_boxes``,

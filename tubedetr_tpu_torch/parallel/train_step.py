@@ -14,6 +14,7 @@ that a caller can time them apart.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -177,6 +178,27 @@ EVAL_KEYS = ("pred_boxes", "pred_sted", "weights", "ca_weights")
 QUERY_KEYS = ("pred_boxes_queries", "pred_sted_queries", "pred_obj_queries")
 
 
+@contextlib.contextmanager
+def ema_weights(state: TrainState):
+    """Inside, the model's parameters hold the EMA weights (each tensor's
+    ``.data`` swapped, nothing copied; buffers named in ``ema_params`` too);
+    a state without EMA leaves them as they are. Caches made from weights
+    (the int8 weights and K2's folds) key on the tensor they were made
+    from, so neither the EMA's nor the raw weights' cache serves the other."""
+    if state.ema_params is None:
+        yield
+        return
+    live = {**dict(state.model.named_buffers()), **dict(state.model.named_parameters())}
+    saved = {n: live[n].data for n in state.ema_params}
+    try:
+        for n, t in state.ema_params.items():
+            live[n].data = t
+        yield
+    finally:
+        for n, t in saved.items():
+            live[n].data = t
+
+
 def make_eval_step(cfg: TubeDETRConfig, ema: bool = False):
     """``step(state, batch) -> (outputs, losses)``: the inference forward
     (``train=False``, dropout off), with the EMA parameters when ``ema`` and
@@ -193,10 +215,7 @@ def make_eval_step(cfg: TubeDETRConfig, ema: bool = False):
         batch = to_device(batch, next(model.parameters()).device)
         model.eval()
         inputs = model_inputs(batch)
-        if ema and state.ema_params is not None:
-            tensors = {**dict(model.named_buffers()), **state.ema_params}
-            outputs = torch.func.functional_call(model, tensors, args=(), kwargs=inputs)
-        else:
+        with ema_weights(state) if ema else contextlib.nullcontext():
             outputs = model(**inputs)
         losses = {}
         if "target_boxes" in batch:

@@ -73,7 +73,16 @@ line:
    seconds a checkpoint save blocks (sync and async), vIoU, launches; then
    ``[cli-small]``: the tiny CLI card against CPU (``log.txt`` losses within
    ``TRAIN_LOSS_RTOL``, vIoU within 1e-3);
-10. the probes P1-P5 (``tubedetr_tpu_torch/probes``): both entry points at
+10. several cards (``phase_dist``): a process a card
+   (``torch.cuda.device_count()``, spawned), NCCL, the published training
+   config with one video a card: rank 0's one-rank reference, then DDP,
+   ZeRO-1 and FSDP over every card (on 4 cards also data=2 x time=2), each
+   held to the reference within ``TRAIN_LOSS_RTOL``, and the int8_static +
+   K2 eval with the frames split over the cards, K2 exact on every rank.
+   With one card it checks the wiring (every collective is the identity);
+   the ``[dist]`` lines give each rank's warm step, peak memory and, on
+   several cards, NCCL's share of a traced step;
+11. the probes P1-P5 (``tubedetr_tpu_torch/probes``): both entry points at
    the scripts' full shapes with their launch counts zeroed just before and
    read just after, each kernel held exactly to its plain version, and
    noshift and convonly timed beside K2 at layer3's serving shape. They run
@@ -85,7 +94,8 @@ line:
 
 Then the script's seconds, one ``kernels`` JSON line (each kernel's
 ``launches`` counted on phase 6's path, and by path: serve, the int8 + K2
-pipeline, train, the CLI's int8 eval and its reload request), the
+pipeline, train, the CLI's int8 eval and its reload request, and K2's on
+rank 0's eval of phase 10), the
 ``nvidia-smi`` line again, and,
 last, the ``ok`` JSON line. There is no CPU path: without a card the script exits 2.
 """
@@ -1846,6 +1856,274 @@ def phase_cli_small():
         fail(f"cli small: vIoU summaries differ card vs CPU by {viou_err}")
 
 
+# the [dist] phase: a process a card, NCCL, the published training config
+DIST_STEPS = {1: 2, 4: 6}  # steps of each run on 1 card and on 4
+DIST_WAIT_S = 600.0  # the whole phase's ranks, from their start
+
+
+def nccl_profile(prof, wall_s: float) -> dict:
+    """A device trace of one step read for its NCCL kernels: their seconds,
+    all kernels' seconds, and the NCCL seconds over the step's host wall
+    time (NCCL kernels run on their own stream and may overlap compute)."""
+    from torch.autograd import DeviceType
+
+    nccl = total = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        total += us / 1e6
+        if "nccl" in e.key.lower():
+            nccl += us / 1e6
+    return {"step_s_traced": wall_s, "device_kernel_s": total, "nccl_kernel_s": nccl,
+            "nccl_share_of_step": nccl / wall_s if wall_s else None}
+
+
+def dist_train_run(cfg, template, batch, mesh, steps: int, traced: bool) -> dict:
+    """``steps`` dropout-free train steps of the published model (a copy of
+    ``template``) on ``batch``, spread over ``mesh`` (None: the unwrapped
+    one-process state), then, when ``traced``, one more under
+    ``torch.profiler``: each step's metrics and seconds, the peak memory
+    over the run, the traced step."""
+    import copy
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tubedetr_tpu_torch.parallel.train_step import create_train_state, parallelize
+    from tubedetr_tpu_torch.train.optim import base_lrs
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = copy.deepcopy(template)
+    state = create_train_state(cfg, model)
+    if mesh is not None:
+        state = parallelize(cfg, state, mesh)
+    lrs = base_lrs(cfg)
+    step = timed_step(cfg, deterministic=True)
+    for _ in range(steps):
+        state, _ = step(state, batch, lrs, cfg.seed)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    profiled = None
+    if traced:
+        one = timed_step(cfg, deterministic=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state, _ = one(state, batch, lrs, cfg.seed)
+        profiled = nccl_profile(prof, one.split[0]["step_s"])
+    warm = [s["step_s"] for s in step.split[1:]] or [step.split[0]["step_s"]]
+    out = {"metrics": step.metrics, "step_s": [s["step_s"] for s in step.split],
+           "warm_step_median_s": float(np.median(warm)), "peak_memory_gib": peak,
+           "profile": profiled}
+    del state, model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_int8_eval(cfg, weights, sample, mesh) -> dict:
+    """The ``--eval`` forward of the int8_static + K2 model on one 200-frame
+    video with the trunk's frames split over ``mesh``'s time group:
+    calibrated on the video (every frame on each rank, the ranks' maximum),
+    K2's launches counted over the forward alone, each K2 call's real input
+    held exactly to the plain version after the count was read, and the
+    boxes against the same model's forward with every frame on this rank."""
+    import torch
+
+    from tubedetr_tpu_torch.data.collate import collate
+    from tubedetr_tpu_torch.models.quantize import calibrate_qscales
+    from tubedetr_tpu_torch.models.tubedetr import build_model
+    from tubedetr_tpu_torch.ops.fused_bottleneck import fused_bottleneck_block
+    from tubedetr_tpu_torch.parallel.train_step import (
+        TrainState,
+        make_eval_step,
+        model_inputs,
+        to_device,
+    )
+
+    qcfg = cfg.replace(backbone_quant="int8_static", fused_bottleneck=True, mesh_time=mesh.time)
+    model = build_model(qcfg)
+    model.load_state_dict(weights)
+    model.time_group = mesh.time_group if mesh.time > 1 else None
+    device = next(model.parameters()).device
+    batch = to_device(collate([sample], qcfg.video_max_len, qcfg.stride, qcfg.max_text_len), device)
+    calibrate_qscales(qcfg, model, model_inputs(batch))
+    eval_step = make_eval_step(qcfg)
+    state = TrainState(model, None, {}, None)
+    eval_step(state, batch)  # warm
+    fused_bottleneck_block.launches = 0
+    with K2Capture() as cap:
+        (out, _), sec = synced(lambda: eval_step(state, batch))
+    launches = fused_bottleneck_block.launches
+    k2_err = cap.check()
+    model.time_group = None
+    whole, _ = eval_step(state, batch)
+    diff = float((out["pred_boxes"] - whole["pred_boxes"]).abs().max())
+    res = {"frames_a_rank": -(-qcfg.video_max_len // mesh.time), "forward_s": sec,
+           "k2_launches": launches, "k2_max_abs_err": k2_err, "boxes_vs_all_frames_here": diff}
+    del model, state, out, whole
+    torch.cuda.empty_cache()
+    return res
+
+
+def dist_rank(rank: int, world: int) -> dict:
+    """One rank's work in ``phase_dist``: the one-rank reference (rank 0,
+    unwrapped, the global batch of ``world`` videos as ``world``
+    microbatches), then DDP, ZeRO-1 and FSDP over every rank (on 4 cards also
+    data=2 x time=2), then the time-split int8 + K2 eval. On one card no
+    step is traced: its collectives launch no NCCL kernel."""
+    import torch
+
+    from tubedetr_tpu_torch.data.collate import collate
+    from tubedetr_tpu_torch.data.synthetic import make_synthetic_sample
+    from tubedetr_tpu_torch.models.tubedetr import build_model
+    from tubedetr_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = train_cfg()
+    h, w = TRAIN_HW
+    samples = [make_synthetic_sample(100 + i, t=TRAIN_T, h=h, w=w, vocab=cfg.text_vocab_size,
+                                     text_len=12) for i in range(world)]
+    torch.manual_seed(8)  # the vectors fan_in_state_dict keeps are the init's
+    template = build_model(cfg)
+    weights = fan_in_state_dict(template, seed=8)
+    template.load_state_dict(weights)
+    steps = DIST_STEPS.get(world, DIST_STEPS[4])
+    traced = world > 1
+
+    def batch(cfg_, part):
+        return collate(part, cfg_.video_max_len_train, cfg_.stride, cfg_.max_text_len)
+
+    out = {"rank": rank, "device": str(torch.cuda.current_device()), "runs": {}}
+    if rank == 0:
+        ref_cfg = cfg.replace(batch_size=world, grad_accum=world)
+        out["ref"] = dist_train_run(ref_cfg, template, batch(ref_cfg, samples), None,
+                                    steps if world == 1 else 1, traced=False)
+    layouts = [("ddp", (world, 1), {}), ("zero", (world, 1), {"shard_optimizer_state": True}),
+               ("fsdp", (world, 1), {"shard_params": True})]
+    if world == 4:
+        layouts.append(("data2xtime2", (2, 2), {"mesh_time": 2}))
+    for name, (data, time_), extra in layouts:
+        mesh = make_mesh(data, time_, "cuda")
+        per = world // data
+        run_cfg = cfg.replace(batch_size=per, **extra)
+        part = samples[mesh.data_rank * per:(mesh.data_rank + 1) * per]
+        out["runs"][name] = dict(dist_train_run(run_cfg, template, batch(run_cfg, part), mesh,
+                                                steps, traced), mesh=[data, time_])
+    del template
+    out["int8"] = dist_int8_eval(cfg, weights, samples[0], make_mesh(1, world, "cuda"))
+    return out
+
+
+def _dist_entry(rank: int, world: int, port: int, results) -> None:
+    import pickle
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        sys.path.insert(0, HERE)
+        from tubedetr_tpu_torch.parallel.dist import init_process_group
+
+        init_process_group(torch.device("cuda"), rank, world, f"tcp://127.0.0.1:{port}", rank)
+        try:
+            results.put((rank, True, pickle.dumps(dist_rank(rank, world))))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - sent to the parent, which fails the script
+        results.put((rank, False, traceback.format_exc()))
+
+
+def phase_dist(smi: str):
+    """Multi-GPU training and evaluation: one process a card
+    (``torch.cuda.device_count()``, spawned), NCCL, the published training
+    config (ResNet-101, RoBERTa-base, 200 frames of 224x398, one video a
+    card, dropout off). Rank 0 first runs the one-rank reference (unwrapped,
+    the global batch as microbatches); then every rank runs DDP, ZeRO-1 and
+    FSDP over all cards (on 4 cards also data=2 x time=2), ``DIST_STEPS``
+    steps and one traced; each run's metrics are held to the reference
+    (step 0, and on one card every step, where every collective is the
+    identity) within ``TRAIN_LOSS_RTOL``. Then the int8_static + K2 eval
+    with the frames split over every card (50 a card on 4), K2 exact
+    against its plain version on every rank. The ``[dist]`` lines: each
+    run's warm step, peak memory and NCCL share per rank; ``[dist-int8]``
+    each rank's K2 launches. Returns K2's launches on rank 0's eval."""
+    import pickle
+    import queue
+    import socket
+    import subprocess
+
+    import torch
+    import torch.multiprocessing as mp
+
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    if world > 1:
+        topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True)
+        for line in topo.stdout.splitlines():
+            print(f"[dist-topo] {line}", flush=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_dist_entry, args=(r, world, port, results)) for r in range(world)]
+    for p in procs:
+        p.start()
+    got, error = {}, None
+    deadline = time.time() + DIST_WAIT_S
+    try:
+        while len(got) < world and error is None:
+            try:
+                rank, ok, res = results.get(timeout=max(1.0, deadline - time.time()))
+            except queue.Empty:
+                error = f"ranks {sorted(set(range(world)) - set(got))} sent nothing in {DIST_WAIT_S} s"
+                break
+            if ok:
+                got[rank] = pickle.loads(res)
+            else:
+                error = f"rank {rank} failed:\n{res}"
+    finally:
+        for p in procs:
+            p.join(timeout=30 if error is None else 1)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    if error is not None:
+        fail(f"dist: {error}")
+    ref = got[0]["ref"]
+    compared = range(len(ref["metrics"])) if world == 1 else range(1)
+    for name in got[0]["runs"]:
+        errs = []
+        for r in range(world):
+            run = got[r]["runs"][name]
+            err = max(abs(run["metrics"][i][k] - ref["metrics"][i][k]) / max(abs(ref["metrics"][i][k]), 1e-12)
+                      for i in compared for k in ref["metrics"][i])
+            errs.append(err)
+            line = {"card": smi, "cards": world, "run": name, "mesh_data_time": run["mesh"],
+                    "rank": r, "steps": len(run["step_s"]), "cold_step_s": run["step_s"][0],
+                    "warm_step_median_s": run["warm_step_median_s"],
+                    "peak_memory_gib": run["peak_memory_gib"], "traced_step": run["profile"],
+                    "loss_total_step0": run["metrics"][0]["loss_total"],
+                    "grad_norm_step0": run["metrics"][0]["grad_norm"],
+                    "max_rel_err_vs_one_rank": err}
+            print(f"[dist] {json.dumps(line)}", flush=True)
+        if not max(errs) <= TRAIN_LOSS_RTOL:
+            fail(f"dist: {name} differs from the one-rank run by {max(errs)} (relative) in its "
+                 f"losses or grad norm")
+    print(f"[dist] {json.dumps({'card': smi, 'cards': world, 'run': 'one-rank reference', 'warm_step_median_s': ref['warm_step_median_s'], 'peak_memory_gib': ref['peak_memory_gib'], 'grad_norm_step0': ref['metrics'][0]['grad_norm'], 'loss_total_step0': ref['metrics'][0]['loss_total']})}", flush=True)
+    for r in range(world):
+        q = got[r]["int8"]
+        print(f"[dist-int8] {json.dumps({'card': smi, 'cards': world, 'rank': r, **q})}", flush=True)
+        if q["k2_launches"] != K2_PER_PASS:
+            fail(f"dist: the int8 eval on rank {r} launched K2 {q['k2_launches']} times, "
+                 f"not {K2_PER_PASS}")
+    print(f"[dist] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return got[0]["int8"]["k2_launches"]
+
+
 def main() -> int:
     try:
         import torch
@@ -1894,6 +2172,7 @@ def main() -> int:
     train_launches = phase_train(smi)
     cli_launches = phase_cli(smi)
     phase_cli_small()
+    dist_launches = phase_dist(smi)
     probes = phase_probes()
     # the counts of the serving path, the HTTP server (int8_static + K2);
     # the pipeline's, the training path's and the CLI's beside them
@@ -1904,6 +2183,7 @@ def main() -> int:
                                      "train": train_launches[key],
                                      "cli int8 eval": cli_launches["int8_eval"][key],
                                      "cli reload request": cli_launches["reload_request"][key]}
+    k2["launches_by_path"]["dist int8 eval (rank 0)"] = dist_launches
 
     print(f"[time] chip_smoke.py took {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": [k1, k2, *probes]}), flush=True)

@@ -563,3 +563,82 @@ def test_device_prefetcher_on_the_card_matches_a_synchronous_copy():
         seen += 1
     assert seen == len(sync) == 5
     assert torch.isfinite(big).all()
+
+
+# ---------------------------------------------------------------------------
+# multi-GPU: a process group of NCCL on the card
+# ---------------------------------------------------------------------------
+
+
+def _tiny_dist_setup(tmp_path):
+    """(config, weights file, the four videos' batch) of ``tests/torch_dist_ranks.py``."""
+    import torch_dist_ranks as R  # beside this file (pytest puts tests/ on the path)
+    from tubedetr_tpu_torch.models.tubedetr import build_model
+
+    torch.manual_seed(0)
+    cfg = R.cfg_of(device="cuda")
+    path = str(tmp_path / "weights.pt")
+    torch.save(build_model(cfg, device="cpu").state_dict(), path)
+    return cfg, path
+
+
+@pytest.mark.parametrize("name", ["ddp", "zero", "fsdp"])
+def test_one_rank_nccl_step_equals_the_unwrapped_step(tmp_path, name):
+    """A one-rank NCCL group (every collective the identity) around DDP,
+    ZeRO-1 or FSDP: one dropout-free AdamW step of the tiny model gives the
+    unwrapped step's loss terms and grad norm within rtol 1e-5 (cuDNN's
+    backward may add in another order from run to run), the gradients
+    within atol 1e-6 and the parameters within the AdamW first-step bound of
+    ``tests/test_torch_dist.py``."""
+    require_cuda()
+    import torch.distributed as dist
+
+    import torch_dist_ranks as R  # beside this file (pytest puts tests/ on the path)
+    from tubedetr_tpu_torch.parallel.dist import init_process_group
+    from tubedetr_tpu_torch.parallel.mesh import make_mesh
+
+    cfg, path = _tiny_dist_setup(tmp_path)
+    extra = {"zero": {"shard_optimizer_state": True}, "fsdp": {"shard_params": True}}.get(name, {})
+    batch = R.batch_of()
+    ref = R._strip(R.run_steps(cfg, path, batch, device="cuda"))
+    init_process_group(torch.device("cuda"), 0, 1, f"file://{tmp_path}/store")
+    try:
+        res = R._strip(R.run_steps(cfg.replace(**extra), path, batch, make_mesh(1, 1, "cuda"),
+                                   device="cuda"))
+    finally:
+        dist.destroy_process_group()
+    R.assert_step_matches(res, ref, R.labels_of(cfg))
+
+
+def test_k2_on_a_second_card_is_exact():
+    """K2 launched on cuda:1 while cuda:0 is current (the wrapper enters the
+    tensor's device, so the SM count and the stream are cuda:1's) equals
+    its plain version bit for bit. Skips with fewer than 2 cards."""
+    require_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 cards: this is K2 on a card other than device 0")
+    xq, fold = k2_inputs(4, 22, 38, 256, seed=3)
+    torch.cuda.set_device(0)
+    cfold = fold_to(fold, "cuda:1")
+    before = fused_bottleneck_block.launches
+    out, so = fused_bottleneck_block(xq.to("cuda:1"), cfold, 1)
+    torch.cuda.synchronize(1)
+    assert fused_bottleneck_block.launches == before + 1 and out.device == torch.device("cuda:1")
+    assert torch.equal(out.cpu(), fused_bottleneck_plain(xq, fold, 1))
+
+
+def test_two_rank_nccl_steps_match_one_card(tmp_path):
+    """Two ranks on two cards (NCCL), each on half the batch: DDP and FSDP
+    give the one-card step on the whole batch (``tests/test_torch_dist.py``'s
+    bounds). Skips with fewer than 2 cards."""
+    require_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 cards: NCCL puts no two ranks of a group on one card")
+    import torch_dist_ranks as R  # beside this file (pytest puts tests/ on the path)
+
+    cfg, path = _tiny_dist_setup(tmp_path)
+    ref = R._strip(R.run_steps(cfg, path, R.batch_of(), device="cuda"))
+    ranks = R.spawn(R.nccl_ranks, 2, tmp_path, path, device="cuda")
+    for res in ranks:
+        for name in ("ddp", "fsdp"):
+            R.assert_step_matches(res[name], ref, R.labels_of(cfg))

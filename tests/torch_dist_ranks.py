@@ -1,0 +1,378 @@
+"""Rank bodies for ``tests/test_torch_dist.py``: spawned gloo processes on the CPU.
+
+``spawn(fn, world, tmp, *args)`` starts ``world`` processes with the
+``spawn`` method; each joins a gloo process group through a file in
+``tmp`` (no fixed port: the tests run under xdist), calls ``fn(rank,
+world, *args)`` and sends back its result. A rank that raises sends its
+traceback; the parent then kills the others (they would wait forever in a
+collective), and every process is joined with a deadline. This module
+imports no JAX: the children import only it and the port.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import queue
+import traceback
+
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+
+KW = dict(
+    backbone="resnet14", hidden_dim=32, nheads=4, enc_layers=1, dec_layers=1, dim_feedforward=64,
+    video_max_len=8, video_max_len_train=8, stride=2, resolution=128, max_text_len=8,
+    text_vocab_size=128, text_hidden_size=32, text_layers=1, text_heads=4, text_ffn=64,
+    text_max_positions=40, guided_attn=True, sted=True, aux_loss=True, dropout=0.0,
+    ema=True, ema_decay=0.9, clip_max_norm=0.1, weight_decay=1e-4,
+    lr=1e-3, lr_backbone=1e-4, text_encoder_lr=1e-3, batch_size=2, device="cpu",
+)
+LRS = {"lr": 1e-3, "lr_backbone": 1e-4, "lr_text_encoder": 1e-3}
+T, STRIDE = 8, 2
+# four videos: seeds and durations (a dur % stride tail); the first two
+# (rank 0's half) hold more annotated frames than the last two
+VIDEOS = ((0, 8), (1, 7), (2, 8), (3, 6))
+THREADS = 2  # a rank's CPU threads (a float sum's order follows their count)
+LOSS_RTOL, PARAM_ATOL = 1e-5, 2e-5
+GRAD_ATOL, GRAD_RTOL = 1e-6, 1e-5
+GROUP_LR = {"main": LRS["lr"], "backbone": LRS["lr_backbone"], "text": LRS["lr_text_encoder"]}
+
+
+def _entry(rank, world, init, fn, args, results, device):
+    torch.set_num_threads(THREADS)
+    import torch.distributed as dist
+
+    from tubedetr_tpu_torch.parallel.dist import init_process_group
+
+    try:
+        # gloo on the CPU; NCCL on the card, rank r on cuda:r
+        init_process_group(torch.device(device), rank, world, f"file://{init}", local_rank=rank)
+        # pickled here: a tensor put on the queue as it is would travel as a
+        # shared-memory handle, gone once this process exits
+        results.put((rank, True, pickle.dumps(fn(rank, world, *args))))
+    except BaseException:  # noqa: BLE001 - the parent re-raises it with the rank
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn(fn, world: int, tmp, *args, timeout: float = 240.0, device: str = "cpu") -> list:
+    """Each rank's ``fn(rank, world, *args)``, in rank order; raises with
+    the first failing rank's traceback. ``device="cuda"``: NCCL, a card a
+    rank."""
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    init = os.path.join(str(tmp), f"pg-{fn.__name__}")  # a file store must start absent
+    if os.path.exists(init):
+        os.remove(init)
+    procs = [ctx.Process(target=_entry, args=(r, world, init, fn, args, results, device),
+                         daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    out, error = {}, None
+    try:
+        while len(out) < world and error is None:
+            try:
+                rank, ok, res = results.get(timeout=timeout)
+            except queue.Empty:
+                error = f"no result within {timeout} s from ranks {sorted(set(range(world)) - set(out))}"
+                break
+            if ok:
+                out[rank] = pickle.loads(res)
+            else:
+                error = f"rank {rank} failed:\n{res}"
+    finally:
+        for p in procs:
+            p.join(timeout=5 if error is None else 0.1)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=5)
+    if error is not None:
+        raise AssertionError(error)
+    assert not any(p.is_alive() for p in procs)
+    return [out[r] for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# the bounds a multi-rank step is held to
+# ---------------------------------------------------------------------------
+
+
+def labels_of(cfg):
+    from tubedetr_tpu_torch.models.tubedetr import build_model
+    from tubedetr_tpu_torch.train.optim import label_params
+
+    return label_params(build_model(cfg, device="cpu"))
+
+
+def adamw_atol(labels, grads, ref_grads, grad_norm, max_norm):
+    """{name: per-element atol} of post-step parameters after AdamW's first
+    step: ``PARAM_ATOL`` plus ``lr * |u(g) - u(g_ref)|`` of the clipped
+    gradients, ``u(g) = g / (|g| + 1e-8)``. Checks that the second term
+    exceeds ``PARAM_ATOL`` on under 1% of the elements."""
+    scale = min(1.0, max_norm / grad_norm)
+
+    def u(g):
+        g = g * scale
+        return g / (np.abs(g) + 1e-8)
+
+    atol, loose, total = {}, 0, 0
+    for n, g in grads.items():
+        extra = GROUP_LR[labels[n]] * np.abs(u(g) - u(ref_grads[n]))
+        atol[n] = PARAM_ATOL + extra
+        loose += int((extra > PARAM_ATOL).sum())
+        total += g.size
+    assert loose < 0.01 * total, (loose, total)
+    return atol
+
+
+def assert_close(ours, ref, atol, what):
+    for n, tol in atol.items():
+        diff = np.abs(ours[n] - ref[n])
+        assert (diff <= tol).all(), f"{what} {n}: max |diff| {diff.max()}, over by {(diff - tol).max()}"
+
+
+def assert_step_matches(res, ref, labels, step=0):
+    """A multi-rank step's results against one process's: the loss terms,
+    ``grad_norm``, the gradients, the parameters and the EMA."""
+    m, rm = res["metrics"][step], ref["metrics"][step]
+    assert set(m) == set(rm)
+    for k in rm:
+        np.testing.assert_allclose(m[k], rm[k], rtol=LOSS_RTOL, err_msg=k)
+    for n, g in ref["grads"].items():
+        np.testing.assert_allclose(res["grads"][n], g, rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                   err_msg=f"grad {n}")
+    assert set(res["grads"]) == set(ref["grads"])
+    atol = adamw_atol(labels, res["grads"], ref["grads"], rm["grad_norm"], KW["clip_max_norm"])
+    trainable = set(atol)
+    atol.update({n: np.float32(0.0) for n in ref["params"] if n not in trainable})  # frozen
+    assert_close(res["params"], ref["params"], atol, "param")
+    assert_close(res["ema"], ref["ema"], atol, "ema")
+
+
+# ---------------------------------------------------------------------------
+# the model, the batches, the steps
+# ---------------------------------------------------------------------------
+
+
+def cfg_of(**extra):
+    from tubedetr_tpu_torch.config import TubeDETRConfig
+
+    return TubeDETRConfig(**{**KW, **extra})
+
+
+def samples(videos=VIDEOS):
+    from tubedetr_tpu_torch.data.synthetic import make_synthetic_sample
+
+    return [make_synthetic_sample(s, t=d, vocab=KW["text_vocab_size"]) for s, d in videos]
+
+
+def batch_of(videos=VIDEOS):
+    from tubedetr_tpu_torch.data.collate import collate
+
+    return collate(samples(videos), T, STRIDE, KW["max_text_len"])
+
+
+def model_from(weights_path: str, cfg, device="cpu"):
+    from tubedetr_tpu_torch.models.tubedetr import build_model
+
+    model = build_model(cfg, device=device)
+    model.load_state_dict(torch.load(weights_path))
+    return model
+
+
+def numpy_dict(d):
+    return {k: v.detach().float().cpu().numpy().copy() for k, v in d.items()}
+
+
+class RecordingStep:
+    """The dropout-free train step that keeps the pre-clip gradients,
+    whole (an FSDP shard's gathered: a collective on every rank)."""
+
+    def __init__(self, cfg):
+        from tubedetr_tpu_torch.parallel.tp import full
+        from tubedetr_tpu_torch.parallel.train_step import TrainStep
+
+        outer = self
+
+        class Step(TrainStep):
+            def update(self, state, lrs):
+                outer.grads = {n: full(p.grad).detach().clone() for n, p in
+                               state.model.named_parameters() if p.grad is not None}
+                return super().update(state, lrs)
+
+        self.step = Step(cfg, deterministic=True)
+        self.grads = None
+
+    def __call__(self, state, batch, lrs=LRS, seed=0):
+        return self.step(state, batch, lrs, seed)
+
+
+def run_steps(cfg, weights_path, batch, mesh=None, n_steps=1, resume=None, device="cpu"):
+    """One train state from the saved weights (resumed from the checkpoint
+    ``resume`` when given), spread over ``mesh``, ``n_steps`` dropout-free
+    steps on ``batch``. Returns a dict of numpy results: each step's
+    metrics, the last step's pre-clip gradients, the whole parameters, EMA
+    and optimizer moments after the steps, and what this rank holds of
+    the moments and the EMA."""
+    from tubedetr_tpu_torch.parallel.mesh import full_state_dicts
+    from tubedetr_tpu_torch.parallel.tp import is_sharded
+    from tubedetr_tpu_torch.parallel.train_step import create_train_state, parallelize
+    from tubedetr_tpu_torch.train.checkpoint import load_checkpoint, resume_state, snapshot
+    from tubedetr_tpu_torch.train.optim import _local
+
+    state = create_train_state(cfg, model_from(weights_path, cfg, device))
+    if resume:
+        resume_state(state, load_checkpoint(resume))
+    if mesh is not None:
+        state = parallelize(cfg, state, mesh)
+    step = RecordingStep(cfg)
+    metrics = []
+    for _ in range(n_steps):
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    model_sd, ema, opt_sd = full_state_dicts(state)
+    params = {n: model_sd[n] for n, _ in state.model.named_parameters()}
+    local_moments = sum(_local(v).numel() for st in state.optimizer.state.values()
+                        for k, v in st.items() if k in ("exp_avg", "exp_avg_sq"))
+    return {
+        "metrics": metrics,
+        "grads": numpy_dict(step.grads),
+        "params": numpy_dict(params),
+        "ema": numpy_dict(ema),
+        "opt": snapshot(opt_sd),
+        "local_moment_elems": int(local_moments),
+        "local_ema_elems": int(sum(_local(t).numel() for t in state.ema_params.values())),
+        "sharded": sorted(n for n, p in state.model.named_parameters() if is_sharded(p)),
+        "state": state,
+    }
+
+
+def _strip(res):
+    res = dict(res)
+    res.pop("state")
+    return res
+
+
+def data_axis_ranks(rank, world, weights, tmp):
+    """The data axis on ``world`` ranks, each on its half of the four
+    videos: DDP; DDP with ``grad_accum=2``; ZeRO-1 with the EMA (and its
+    checkpoint, written by rank 0); FSDP (and its checkpoint); and the
+    one-process checkpoint ``tmp/ckpt1.pth`` resumed under ZeRO-1 and
+    under FSDP (one more step each); then ``eval_ranks``."""
+    from tubedetr_tpu_torch.parallel.mesh import make_mesh
+    from tubedetr_tpu_torch.train.checkpoint import checkpoint_payload, save_checkpoint
+
+    mesh = make_mesh(world, 1, "cpu")
+    half = len(VIDEOS) // world
+    batch = batch_of(VIDEOS[rank * half:(rank + 1) * half])
+    out = {}
+    for name, extra in (("ddp", {}), ("accum", {"grad_accum": 2}),
+                        ("zero", {"shard_optimizer_state": True}), ("fsdp", {"shard_params": True})):
+        if half % extra.get("grad_accum", 1):
+            continue  # a share of one video has no two microbatches
+        cfg = cfg_of(**extra)
+        res = run_steps(cfg, weights, batch, mesh)
+        if name in ("zero", "fsdp"):
+            payload = checkpoint_payload(res["state"], 0, cfg)
+            if rank == 0:
+                save_checkpoint(os.path.join(tmp, f"ckpt_{name}.pth"), payload)
+        out[name] = _strip(res)
+    for name, extra in (("resume_zero", {"shard_optimizer_state": True}),
+                        ("resume_fsdp", {"shard_params": True})):
+        cfg = cfg_of(**extra)
+        out[name] = _strip(run_steps(cfg, weights, batch, mesh, resume=os.path.join(tmp, "ckpt1.pth")))
+    out["eval"] = eval_ranks(rank, world, weights, tmp, mesh)
+    return out
+
+
+def all_ranks(rank, world, weights, tmp, qscales, inputs):
+    """``data_axis_ranks`` and ``time_axis_ranks`` in one spawn (a process's
+    start costs seconds): two meshes over one process group."""
+    return {"data": data_axis_ranks(rank, world, weights, tmp),
+            "time": time_axis_ranks(rank, world, weights, qscales, inputs)}
+
+
+def time_axis_ranks(rank, world, weights, qscales, inputs):
+    """``mesh_time = world``: one dropout-free train step on the four
+    videos (every rank reads them all and runs the trunk on its share of
+    the frames), then the float inference forward of the same weights and
+    the int8_static + fused one (``qscales``: the calibrated maxima by
+    buffer name) on ``inputs``, time-sharded."""
+    from tubedetr_tpu_torch.models.quantize import set_model_qscales
+    from tubedetr_tpu_torch.models.tubedetr import build_model
+    from tubedetr_tpu_torch.ops.fused_bottleneck import fused_bottleneck_block
+    from tubedetr_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, world, "cpu")
+    cfg = cfg_of(mesh_time=world)
+    out = {"step": _strip(run_steps(cfg, weights, batch_of(), mesh))}
+    inputs = {k: torch.from_numpy(v) for k, v in inputs.items()}
+    for name, extra in (("float", {}),
+                        ("int8", {"backbone_quant": "int8_static", "fused_bottleneck": True})):
+        model = model_from(weights, cfg_of(**extra))
+        if name == "int8":
+            set_model_qscales(model, qscales)
+        model.time_group = mesh.time_group
+        before = fused_bottleneck_block.launches
+        with torch.inference_mode():
+            o = model(**inputs)
+        assert fused_bottleneck_block.launches == before  # CPU: the plain version
+        out[name] = {k: o[k].float().numpy() for k in ("pred_boxes", "pred_sted")}
+    return out
+
+
+EVAL_VIDEOS = dict(n=5, t=T, seed=10, vocab=KW["text_vocab_size"], text_len=6)
+
+
+def evaluate_videos(cfg, state, batch_size: int, rank: int = 0, world: int = 1, sync_dir=""):
+    """``evaluate`` over the five evaluation videos (``EVAL_VIDEOS``),
+    this data rank's share in batches of ``batch_size`` (a tail padded by
+    repeating its last sample), merged over the ranks: (vIoU summary,
+    meters)."""
+    from tubedetr_tpu_torch.apps.train import PaddedTail
+    from tubedetr_tpu_torch.data.loader import DataLoader
+    from tubedetr_tpu_torch.data.synthetic import SyntheticDataset
+    from tubedetr_tpu_torch.eval.viou import VIoUEvaluator
+    from tubedetr_tpu_torch.parallel.train_step import make_eval_step
+    from tubedetr_tpu_torch.train.engine import evaluate
+
+    ds = SyntheticDataset(**EVAL_VIDEOS)
+    loader = DataLoader(ds, batch_size=batch_size, t=T, stride=STRIDE,
+                        max_text_len=KW["max_text_len"], process_index=rank, process_count=world)
+    ev = VIoUEvaluator(ds.annotations)
+    stats = evaluate(cfg, make_eval_step(cfg, ema=True), state, PaddedTail(loader), ev)
+    ev.synchronize_between_processes(sync_dir)
+    return ev.summarize(), stats
+
+
+def eval_ranks(rank, world, weights, tmp, mesh):
+    """The evaluation on ``world`` data ranks of an FSDP state with its EMA
+    (``gather_state``: an unsharded copy evaluates), in batches of 2 (the
+    shares are uneven, a tail is padded) and of 1 (the meters' batches are
+    then the one process's)."""
+    from tubedetr_tpu_torch.parallel.mesh import gather_state
+    from tubedetr_tpu_torch.parallel.train_step import create_train_state, parallelize
+
+    cfg = cfg_of(shard_params=True)
+    state = parallelize(cfg, create_train_state(cfg, model_from(weights, cfg)), mesh)
+    eval_state = gather_state(state)
+    assert eval_state.model is not state.model and eval_state.parallel is None
+    return {bs: evaluate_videos(cfg, eval_state, bs, rank, world, os.path.join(tmp, f"sync{bs}"))
+            for bs in (2, 1)}
+
+
+def nccl_ranks(rank, world, weights):
+    """On the card, a rank a card: DDP and FSDP over every rank, one step
+    each on this rank's share of the four videos."""
+    from tubedetr_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(world, 1, "cuda")
+    per = len(VIDEOS) // world
+    batch = batch_of(VIDEOS[rank * per:(rank + 1) * per])
+    device = f"cuda:{torch.cuda.current_device()}"
+    return {name: _strip(run_steps(cfg_of(**extra), weights, batch, mesh, device=device))
+            for name, extra in (("ddp", {}), ("fsdp", {"shard_params": True}))}

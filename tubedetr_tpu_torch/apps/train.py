@@ -1,7 +1,24 @@
-"""The training and evaluation CLI (counterpart of ``tubedetr_tpu/apps/train.py``), one process.
+"""The training and evaluation CLI (counterpart of ``tubedetr_tpu/apps/train.py``).
 
     python -m tubedetr_tpu_torch.apps.train --dataset_config config/vidstg.json \\
         --combine_datasets vidstg --combine_datasets_val vidstg --ema --output-dir out
+
+On several cards, one process a card, launched by ``torchrun
+--nproc_per_node N -m tubedetr_tpu_torch.apps.train ...`` or ``srun python
+-m tubedetr_tpu_torch.apps.train ...`` (``parallel/dist.py`` reads either's
+environment; NCCL on the card, gloo with ``--device cpu``). Ranks other
+than 0 print only what is forced. The ``(data, time)`` mesh spans every
+process (``--mesh_time`` of them split a video's frames; the data axis
+widens to the rest), the data seed is ``seed + data rank`` while the model
+and the shuffle read ``seed`` alone, and each data rank's loaders read its
+share of the samples. ``--shard_optimizer_state`` (ZeRO-1) and
+``--shard_params`` (FSDP) print the JAX package's ``[zero]`` and ``[shard]``
+lines. The evaluation runs each data rank's share (a tail batch padded by
+repeating its last sample, sliced away before the merge) on replicated
+weights (a sharded state gathered first), then merges the vIoU predictions
+and the meters; the int8 scales are the maximum over the ranks. Rank 0
+alone writes the checkpoints (one process's format, gathered), ``log.txt``
+and ``log_stats.json``.
 
 Config (with the ``--dataset_config`` overlay) -> seeding -> the model built
 from ``--seed`` on ``--device`` -> ``--load`` (a ``.pth`` with the warm-start
@@ -94,6 +111,33 @@ class TimedFeed:
             self.stats.steps.append({"wait_s": wait_s, "step_s": step_s})
 
 
+class PaddedTail:
+    """The evaluation's batches of ``loader``, each padded to the loader's
+    batch size by repeating its last sample (the JAX CLI's
+    ``_ShardedEval``); ``meta`` keeps the real length, so ``evaluate``
+    slices the padded outputs away."""
+
+    def __init__(self, loader):
+        self.loader = loader
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for batch, meta in self.loader:
+            b = len(meta["video_ids"])
+            extra = self.loader.batch_size - b
+            if extra > 0:
+                batch = {k: _repeat_last(v, extra) for k, v in batch.items()}
+            yield batch, meta
+
+
+def _repeat_last(v, n: int):
+    if torch.is_tensor(v):
+        return torch.cat([v, v[-1:].expand(n, *v.shape[1:])])
+    return np.concatenate([v, np.repeat(v[-1:], n, axis=0)])
+
+
 class _SameThreadFeed:
     """``prefetch_to_device`` over a fresh pass of ``loader``, sized."""
 
@@ -110,7 +154,31 @@ class _SameThreadFeed:
 
 
 def main(argv=None, stats: Optional[RunStats] = None) -> int:
+    """Parse ``argv``, join the launcher's process group when there is one
+    (left at the end), run."""
     from tubedetr_tpu_torch.apps.cli import config_from_args
+    from tubedetr_tpu_torch.parallel import dist as tdist
+
+    cfg = config_from_args(argv)
+    if cfg.backbone_quant in ("int8", "int8_static") and not cfg.evaluate_only:
+        raise NotImplementedError(
+            "--backbone_quant int8/int8_static trains nothing (zero gradients through "
+            "round()); use it with --eval, or in the demo and serving paths. Quantized "
+            "training (int8_qat, --backbone_quant_fast/--backbone_quant_frozen) comes with "
+            "ROADMAP queue 1 'Secondary features'"
+        )
+    distributed = tdist.init_distributed_mode(cfg.device)
+    try:
+        return _run(cfg, stats, distributed)
+    finally:
+        if distributed:
+            tdist.restore_print()
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(cfg, stats: Optional[RunStats], distributed: bool) -> int:
     from tubedetr_tpu_torch.data.datasets import build_dataset
     from tubedetr_tpu_torch.data.loader import (
         ConcatDataset,
@@ -122,6 +190,8 @@ def main(argv=None, stats: Optional[RunStats] = None) -> int:
     from tubedetr_tpu_torch.models.quantize import get_or_calibrate_qscales, weights_tag_for
     from tubedetr_tpu_torch.models.tokenizer import build_tokenizer
     from tubedetr_tpu_torch.models.tubedetr import COMPUTE_DTYPES, build_model
+    from tubedetr_tpu_torch.parallel import dist as tdist
+    from tubedetr_tpu_torch.parallel.mesh import gather_state, make_mesh, mesh_shape
     from tubedetr_tpu_torch.parallel.train_step import (
         TrainState,
         create_train_state,
@@ -129,6 +199,7 @@ def main(argv=None, stats: Optional[RunStats] = None) -> int:
         make_eval_step,
         make_train_step,
         model_inputs,
+        parallelize,
         to_device,
     )
     from tubedetr_tpu_torch.train.checkpoint import (
@@ -143,24 +214,22 @@ def main(argv=None, stats: Optional[RunStats] = None) -> int:
     from tubedetr_tpu_torch.utils.device import configure_precision, resolve_device
     from tubedetr_tpu_torch.utils.misc import get_sha
 
-    cfg = config_from_args(argv)
-    if cfg.backbone_quant in ("int8", "int8_static") and not cfg.evaluate_only:
-        raise NotImplementedError(
-            "--backbone_quant int8/int8_static trains nothing (zero gradients through "
-            "round()); use it with --eval, or in the demo and serving paths. Quantized "
-            "training (int8_qat, --backbone_quant_fast/--backbone_quant_frozen) comes with "
-            "ROADMAP queue 1 'Secondary features'"
-        )
-    device = resolve_device(cfg.device)
+    device = tdist.device_for(resolve_device(cfg.device))
+    main_rank = tdist.is_main_process()
+    if distributed:
+        tdist.setup_print_for_distributed(main_rank)
+        print(f"distributed: {tdist.get_world_size()} processes, rank {tdist.get_rank()} on "
+              f"{device}", force=True)
     configure_precision(device)
     on_card = device.type == "cuda"
     print(get_sha())
     print(f"config: {cfg}")
+    mesh = make_mesh(*mesh_shape(cfg, tdist.get_world_size()), device.type)
 
-    # one process: the data seed is the seed plus the rank 0; the model is
-    # built from the seed itself, as every rank would build it
-    seed = cfg.seed
-    np.random.seed(seed)
+    # the data seed is the seed plus the data rank; the model, the loaders'
+    # shuffle and the epoch chunks (which the data ranks share) read the
+    # seed itself
+    np.random.seed(cfg.seed + mesh.data_rank)
     torch.manual_seed(cfg.seed)
     tokenizer = build_tokenizer(cfg.tokenizer_path, cfg.text_vocab_size)
     model = build_model(cfg, device)
@@ -181,17 +250,22 @@ def main(argv=None, stats: Optional[RunStats] = None) -> int:
     start_epoch = 0
     if cfg.resume:
         start_epoch = resume_state(state, load_checkpoint(cfg.resume))
+    if cfg.evaluate_only:  # replicated weights; the time group splits the frames
+        model.time_group = mesh.time_group if mesh.time > 1 else None
+    else:  # a one-process state (resumed) resharded over the mesh
+        state = parallelize(cfg, state, mesh)
 
     out_dir = Path(cfg.output_dir) if cfg.output_dir else None
     if out_dir:
         out_dir.mkdir(parents=True, exist_ok=True)
-    ckpt_writer = AsyncCheckpointWriter() if cfg.async_checkpoint else None
+    ckpt_writer = AsyncCheckpointWriter() if cfg.async_checkpoint and main_rank else None
 
     def loader_for(dataset, **kw):
-        return DataLoader(dataset, stride=cfg.stride, max_text_len=cfg.max_text_len, seed=seed,
+        return DataLoader(dataset, stride=cfg.stride, max_text_len=cfg.max_text_len, seed=cfg.seed,
                           num_workers=cfg.num_workers, with_fast=cfg.fast, tokenizer=tokenizer,
                           frames_dtype=cfg.frames_dtype, compact_pad_masks=cfg.compact_pad_masks,
-                          pin_memory=on_card, **kw)
+                          pin_memory=on_card, process_index=mesh.data_rank,
+                          process_count=mesh.data, **kw)
 
     def make_val_loaders():
         loaders = []
@@ -227,9 +301,12 @@ def main(argv=None, stats: Optional[RunStats] = None) -> int:
 
     def run_eval():
         all_stats = {}
+        eval_state = gather_state(state)  # replicated weights and EMA
         for name, ds, loader in make_val_loaders():
             ev = VIoUEvaluator(ds.annotations, tmp_loc=cfg.tmp_loc, save_pred=cfg.test)
-            evaluate(cfg, eval_step, state, feed(loader), ev, name, test_mode=cfg.test)
+            evaluate(cfg, eval_step, eval_state, feed(PaddedTail(loader) if mesh.distributed
+                                                      else loader), ev, name, test_mode=cfg.test)
+            ev.synchronize_between_processes(str((out_dir or Path(".")) / "eval_sync"))
             res = ev.summarize()
             if res:
                 numeric = {k: v for k, v in res.items() if isinstance(v, (int, float))}
@@ -241,7 +318,7 @@ def main(argv=None, stats: Optional[RunStats] = None) -> int:
 
     if cfg.evaluate_only:
         test_stats = run_eval()
-        if out_dir:
+        if out_dir and main_rank:
             with open(out_dir / "log_stats.json", "w") as f:
                 json.dump(test_stats, f)
         if stats is not None:
@@ -262,12 +339,14 @@ def main(argv=None, stats: Optional[RunStats] = None) -> int:
     num_training_steps = steps_per_epoch * cfg.epochs
     train_step = make_train_step(cfg)
     writer = None
-    if cfg.tb_dir:
+    if cfg.tb_dir and main_rank:
         from torch.utils.tensorboard import SummaryWriter
 
         writer = SummaryWriter(cfg.tb_dir)
 
     def save(path: Path, payload: Dict):
+        if not main_rank:
+            return
         t0 = time.perf_counter()
         if ckpt_writer is not None:
             ckpt_writer.save(str(path), payload)
@@ -280,7 +359,7 @@ def main(argv=None, stats: Optional[RunStats] = None) -> int:
     try:
         for epoch in range(start_epoch, cfg.epochs):
             chunks = [train_base] if cfg.epoch_chunks <= 0 else [
-                EpochChunkView(train_base, cfg.epoch_chunks, c, seed=seed + epoch)
+                EpochChunkView(train_base, cfg.epoch_chunks, c, seed=cfg.seed + epoch)
                 for c in range(cfg.epoch_chunks)
             ]
             for chunk in chunks:
@@ -291,7 +370,7 @@ def main(argv=None, stats: Optional[RunStats] = None) -> int:
                 state, train_stats = train_one_epoch(cfg, train_step, state,
                                                      TimedFeed(feed(loader), stats), epoch,
                                                      num_training_steps, writer)
-            if out_dir:
+            if out_dir:  # every rank gathers a sharded state; rank 0 writes
                 payload = checkpoint_payload(state, epoch, cfg)
                 save(out_dir / "checkpoint.pth", payload)
                 if ((epoch + 1) % 2 == 0 or epoch + 1 == cfg.lr_drop
@@ -305,7 +384,7 @@ def main(argv=None, stats: Optional[RunStats] = None) -> int:
                 "epoch": epoch,
                 "n_parameters": int(n_params),
             }
-            if out_dir:
+            if out_dir and main_rank:
                 with open(out_dir / "log.txt", "a") as f:
                     f.write(json.dumps(log_stats) + "\n")
     finally:

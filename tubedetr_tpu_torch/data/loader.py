@@ -1,8 +1,11 @@
 """Batched loading and the host-to-device feed (counterpart of ``tubedetr_tpu/data/loader.py``).
 
 ``DataLoader`` yields ``(batch, meta)`` pairs: the indices shuffled with
-``default_rng(seed + epoch)`` (``set_epoch``), sharded contiguous-strided
-over processes, grouped into batches (``drop_last`` for training), each
+``default_rng(seed + epoch)`` (``set_epoch``; the processes pass one seed,
+so their shares partition the epoch), sharded contiguous-strided over
+processes, grouped into batches (``drop_last`` for training: the indices
+cut to a multiple of the processes' global batch first, so every process
+runs the same number of steps and no collective waits alone), each
 sample cut into ``div_vid``-frame clips for evaluation, and collated. With
 ``num_workers`` a producer thread fetches each batch's samples on a pool of
 that many threads and keeps up to ``prefetch`` collated batches in a
@@ -96,6 +99,8 @@ class DataLoader:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        if self.drop_last:  # every process the same number of batches
+            idx = idx[:len(idx) - len(idx) % (self.process_count * self.batch_size)]
         return list(idx[self.process_index::self.process_count])
 
     def __len__(self):

@@ -27,6 +27,7 @@ import threading
 
 import numpy as np
 
+from tubedetr_tpu_torch.ops._cuda_build import build_lock
 from tubedetr_tpu_torch.ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -46,22 +47,32 @@ _int = ctypes.c_int
 
 def build(src: str = SRC_PATH, so: str = SO_PATH) -> str:
     """Compile ``src`` into ``so`` unless ``so`` is newer; returns ``so``.
-    The library is written beside ``so`` and renamed into place, so
-    processes that build at once never load a half-written file. Raises
-    ``RuntimeError`` with the compiler's output when the build fails."""
-    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+    Processes that start at once build once: one holds the build
+    directory's lock (``ops/_cuda_build.py:build_lock``) while it checks and
+    compiles, and the others then find ``so`` fresh. The library is written
+    beside ``so`` and renamed into place, so no process loads a
+    half-written file. Raises ``RuntimeError`` with the compiler's output
+    when the build fails."""
+
+    def fresh():
+        return os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src)
+
+    if fresh():
         return so
-    os.makedirs(os.path.dirname(so), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(so))
-    os.close(fd)
-    try:
-        proc = subprocess.run(["g++", *CXX_FLAGS, src, "-o", tmp], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"building {src} failed:\n{proc.stderr[-4000:]}")
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with build_lock(os.path.dirname(so)):
+        if fresh():
+            return so
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(so))
+        os.close(fd)
+        try:
+            proc = subprocess.run(["g++", *CXX_FLAGS, src, "-o", tmp], capture_output=True,
+                                  text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"building {src} failed:\n{proc.stderr[-4000:]}")
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
     return so
 
 

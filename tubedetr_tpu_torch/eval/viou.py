@@ -78,12 +78,19 @@ class VIoUEvaluator:
     ):
         """Merge the prediction dicts of several processes through files:
         each writes its shard to ``sync_dir`` (shared storage), waits at
-        ``barrier``, then reads every other shard. A single process (the
-        default) is a no-op. With ``process_count > 1`` the caller passes
-        its ``process_index`` and a ``barrier``; the ``torch.distributed``
-        defaults come with multi-GPU support (ROADMAP item 15)."""
-        if process_count is None or process_count == 1:
+        ``barrier``, then reads every other shard, and waits again before
+        the next merge may rewrite the shards. The defaults are the
+        ``torch.distributed`` process group's rank, size and
+        ``dist.barrier``; without a process group (one process) it is a
+        no-op."""
+        from tubedetr_tpu_torch.parallel import dist as tdist
+
+        if process_count is None:
+            process_count = tdist.get_world_size()
+        if process_count == 1:
             return
+        if process_index is None and barrier is None and tdist.is_dist_initialized():
+            process_index, barrier = tdist.get_rank(), tdist.barrier
         if process_index is None or barrier is None:
             raise ValueError(
                 "a multi-process merge needs process_index, process_count and barrier"
@@ -107,6 +114,7 @@ class VIoUEvaluator:
                 other = pickle.load(f)
             for k in _SHARD_KEYS:
                 getattr(self, k).update(other[k])
+        barrier()
 
     # -- scoring ---------------------------------------------------------
     def evaluate(self) -> Dict:

@@ -10,7 +10,11 @@ and an objectness BCE trains the match.
 ``num_boxes`` is the number of annotated frames of the whole batch; under
 gradient accumulation the train step passes the full batch's count to every
 microbatch, and ``mean_scale`` (``1 / grad_accum``) scales the batch-mean
-losses, so that the microbatch sums equal the big batch's losses.
+losses, so that the microbatch sums equal the big batch's losses. Across
+data-parallel ranks ``num_boxes`` is the ranks' total and ``sum_scale``
+(their count) scales the box and objectness sums, so that the mean over the
+ranks, which DDP takes of the gradients, is the global batch's loss (the
+JAX package writes the loss over the global batch).
 """
 
 from __future__ import annotations
@@ -78,7 +82,8 @@ class SetCriterion:
         self.weight_dict = loss_weight_dict(cfg)
 
     def __call__(self, outputs: Dict[str, torch.Tensor], target_boxes, inter_idx, time_mask,
-                 num_boxes: Optional[torch.Tensor] = None, mean_scale: float = 1.0) -> Losses:
+                 num_boxes: Optional[torch.Tensor] = None, mean_scale: float = 1.0,
+                 sum_scale: float = 1.0) -> Losses:
         cfg = self.cfg
         positive_map = inter_positive_map(inter_idx, time_mask.shape[1]) & time_mask
         if num_boxes is None:
@@ -109,10 +114,13 @@ class SetCriterion:
             bce = torch.clamp(x, min=0.0) - x * onehot + torch.log1p(torch.exp(-x.abs()))
             w = positive_map.to(bce.dtype)
             denom = torch.clamp(torch.as_tensor(num_boxes, dtype=bce.dtype), min=1.0)
-            return {"loss_objectness": (bce.mean(-1) * w).sum() / denom}
+            return scaled({"loss_objectness": (bce.mean(-1) * w).sum() / denom})
+
+        def scaled(d):
+            return d if sum_scale == 1 else {k: v * sum_scale for k, v in d.items()}
 
         def layer_losses(pred_boxes, pred_sted, weights):
-            d = loss_boxes(pred_boxes, target_boxes, positive_map, num_boxes)
+            d = scaled(loss_boxes(pred_boxes, target_boxes, positive_map, num_boxes))
             if cfg.sted and pred_sted is not None:
                 d.update({k: v * mean_scale for k, v in
                           loss_sted(pred_sted, inter_idx, time_mask, cfg.sigma).items()})

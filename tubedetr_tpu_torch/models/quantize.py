@@ -24,6 +24,12 @@ from tubedetr_tpu_torch.interop.from_jax import (
     qscales_from_jax,
     qscales_to_flax,
 )
+from tubedetr_tpu_torch.parallel.dist import (
+    all_agree,
+    allreduce_max,
+    is_dist_initialized,
+    is_main_process,
+)
 
 
 def calibration_cfg(cfg):
@@ -48,16 +54,25 @@ def set_model_qscales(model: torch.nn.Module, flat: Dict) -> None:
 def calibrate_qscales(cfg, model: torch.nn.Module, inputs: Dict) -> Dict:
     """One observer forward of ``model`` on ``inputs`` -> the flax
     ``qscales`` tree (layout per ``cfg.scan_backbone_blocks``). The model's
-    observer buffers keep the recorded maxima. One process: the JAX
-    package's cross-process max of the maxima waits for multi-GPU serving
-    (ROADMAP queue 1 'Multi-GPU')."""
+    observer buffers keep the recorded maxima. Across processes each rank
+    observes its own batch and the maxima are the ranks' maximum
+    (``allreduce_max``, the JAX package's ``allreduce_max_tree``), so every
+    rank bakes the same int8 trunk. The forward runs every frame on each
+    rank (``time_group`` off): the observer twin quantizes with dynamic
+    scales, which a share of the frames would change."""
     body = model.backbone[0].body
     if body.quant == "none":
         raise ValueError(
             f"backbone {cfg.backbone!r} recorded no quantization observers (no int8 path)"
         )
-    with body.calibrating(calibration_cfg(cfg).backbone_quant):
-        model(**inputs)
+    time_group, model.time_group = model.time_group, None
+    try:
+        with body.calibrating(calibration_cfg(cfg).backbone_quant):
+            model(**inputs)
+    finally:
+        model.time_group = time_group
+    if is_dist_initialized():
+        body.load_qscales(allreduce_max(body.qscales(BACKBONE_PREFIX)), BACKBONE_PREFIX)
     return qscales_to_flax(model_qscales(model), cfg.scan_backbone_blocks)
 
 
@@ -165,17 +180,19 @@ def get_or_calibrate_qscales(
     """The sidecar's scales when ``cache_dir`` holds one for this config and
     weights (and not ``force``), else one calibration forward, written to
     the sidecar. Returns ``(qscales tree, "cache" | "calibrated")``; the
-    model's observers hold the scales either way."""
+    model's observers hold the scales either way. Across processes the
+    ranks read the sidecar only if every one finds it (the calibration is a
+    collective), and rank 0 alone writes it."""
     path = ""
     if cache_dir:
         if weights_tag is None:
             weights_tag = weights_tag_for(cfg)
         path = sidecar_path(cfg, cache_dir, weights_tag, data_tag)
-        if not force and os.path.exists(path):
+        if not force and all_agree(os.path.exists(path)):
             qscales = load_qscales(path)
             set_model_qscales(model, qscales_from_jax(qscales))
             return qscales, "cache"
     qscales = calibrate_qscales(cfg, model, inputs)
-    if path:
+    if path and is_main_process():
         save_qscales(path, qscales)
     return qscales, "calibrated"

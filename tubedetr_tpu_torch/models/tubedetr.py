@@ -23,6 +23,11 @@ pass between the streams (``share_backbone_inference``). The stem and
 layer1 are always frozen, the whole trunk with ``freeze_backbone`` or
 ``lr_backbone <= 0``, and the text encoder with ``freeze_text_encoder``
 (which also keeps it in eval mode and out of the graph).
+
+With ``time_group`` set, the ranks of that process group split the flat
+frame axis of every trunk pass (slow, fast and shared) and all-gather the
+features at the JAX package's anchor, ``constrain_frame_major``; the rest
+runs whole on each rank.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from tubedetr_tpu_torch.core.masking import (
     force_first_valid,
     time_pad_mask,
 )
+from tubedetr_tpu_torch.core.sharding import gather_frames, local_frames
 from tubedetr_tpu_torch.models.layers import MLP
 from tubedetr_tpu_torch.models.resnet import FrozenBatchNorm2d, ResNet
 from tubedetr_tpu_torch.models.roberta import RobertaConfig
@@ -98,6 +104,9 @@ class TubeDETR(nn.Module):
             self.backbone.requires_grad_(False)
         if cfg.freeze_text_encoder:
             self.transformer.text_encoder.requires_grad_(False)
+        # the ``time`` process group whose ranks share the trunk's frames
+        # (``parallel/train_step.py:parallelize`` sets it); None: all frames here
+        self.time_group = None
 
     def train(self, mode: bool = True) -> "TubeDETR":
         """Dropout on or off; a frozen text encoder stays in eval mode."""
@@ -121,8 +130,16 @@ class TubeDETR(nn.Module):
         return self
 
     def backbone_feats(self, frames: torch.Tensor) -> torch.Tensor:
-        """The trunk over a flat (N, H, W, 3) frame batch -> (N, h, w, 2048)."""
-        return self.backbone[0].body(frames.to(self.input_proj.weight.dtype))
+        """The trunk over a flat (N, H, W, 3) frame batch -> (N, h, w, 2048).
+        With a ``time_group`` each of its ranks runs the trunk on its share
+        of the N frames and the shares are all-gathered
+        (``core/sharding.py``)."""
+        frames = frames.to(self.input_proj.weight.dtype)
+        if self.time_group is None:
+            return self.backbone[0].body(frames)
+        n = frames.shape[0]
+        return gather_frames(self.backbone[0].body(local_frames(frames, self.time_group)), n,
+                             self.time_group)
 
     def encode_frames(self, frames: torch.Tensor, pad_mask: torch.Tensor):
         """Backbone + projection over a flat (N, H, W, 3) frame batch

@@ -5,13 +5,21 @@ library with a plain C interface, ``build/lib<name>.so`` inside this package
 (listed in ``.gitignore``). A library is rebuilt when its source, or any
 ``csrc/*.cuh`` header (the sources include them by name), is newer.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all of
-them. Nothing here runs at import time: the CPU tests import every module of
-the port on a machine without ``nvcc``.
+them. Processes that start together (the ranks of a multi-GPU run) build
+once: ``build_lock`` holds an ``flock`` on the build directory while one of
+them checks what is stale and compiles, and the others find the libraries
+fresh when they get it (the kernel releases the lock of a process that
+dies). The library and its log are written beside their final names and
+renamed into place, so no reader sees half of either. Nothing here runs at
+import time: the CPU tests import every module of the port on a machine
+without ``nvcc``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import re
 import shutil
@@ -72,30 +80,52 @@ def nvcc_command(src: str, out: str) -> list:
     return [_nvcc(), *NVCC_FLAGS, "-o", out, src]
 
 
+@contextlib.contextmanager
+def build_lock(directory: str):
+    """Inside, this process alone builds in ``directory`` (an exclusive
+    ``flock`` on its ``.build.lock``, waited for)."""
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, ".build.lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def write_atomic(path: str, text: str) -> None:
+    """``text`` into ``path`` through a temporary beside it, renamed into place."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        f.write(text)
+    os.replace(tmp, path)
+
+
 def build_all(names: Iterable[str]) -> Dict[str, str]:
-    """Compile every stale library among ``names`` in parallel; returns the
-    compiler output (``-Xptxas -v``: registers, spills) of each build."""
-    os.makedirs(BUILD, exist_ok=True)
-    procs = {}
-    for name in names:
-        if not _stale(name):
-            continue
-        src, lib, _ = _paths(name)
-        tmp = f"{lib}.{os.getpid()}.tmp"
-        procs[name] = (tmp, subprocess.Popen(
-            nvcc_command(src, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ))
-    logs = {}
-    for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        _, lib, log = _paths(name)
-        with open(log, "w") as f:
-            f.write(out)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
-        os.replace(tmp, lib)  # atomic: concurrent loaders never see a partial file
-        logs[name] = out
-    return logs
+    """Compile every stale library among ``names`` in parallel, one process
+    at a time a build directory (``build_lock``); returns the compiler
+    output (``-Xptxas -v``: registers, spills) of each build this process
+    made."""
+    with build_lock(BUILD):
+        procs = {}
+        for name in names:
+            if not _stale(name):
+                continue
+            src, lib, _ = _paths(name)
+            tmp = f"{lib}.{os.getpid()}.tmp"
+            procs[name] = (tmp, subprocess.Popen(
+                nvcc_command(src, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ))
+        logs = {}
+        for name, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            _, lib, log = _paths(name)
+            write_atomic(log, out)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+            os.replace(tmp, lib)  # atomic: concurrent loaders never see a partial file
+            logs[name] = out
+        return logs
 
 
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")

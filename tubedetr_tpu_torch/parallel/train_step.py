@@ -10,6 +10,22 @@ optimizer at the step's per-group LRs, and the EMA. Dropout is on unless
 the step is ``deterministic``, and draws from a generator seeded from the
 dropout seed and the step number. ``TrainStep``'s three phases are public so
 that a caller can time them apart.
+
+Across processes (``parallelize``, over a ``parallel/mesh.py`` mesh): the
+data axis is DDP over every rank with the frozen stem and layer1 left out
+(they have no gradient); ``grad_accum`` holds the all-reduce back until the
+last microbatch (``no_sync``); ``num_boxes`` is the data ranks' sum, and a
+rank's box losses are scaled by the data size, so DDP's mean over ranks is
+the global batch's loss; the metrics are averaged over the data ranks, so
+every rank logs, and stops on, the global batch's loss. ZeRO-1
+(``shard_optimizer_state``) steps the parameters a rank owns and broadcasts
+them; FSDP (``shard_params``, ``parallel/tp.py``) shards the transformer
+and the text encoder, and the trunk's gradients (FSDP leaves the trunk
+whole) are all-reduced by hand. The clip reads the norm of the whole
+gradient, and the EMA updates each rank's share. ``mesh_time > 1`` splits
+the trunk's frames over the time group (``core/sharding.py``); the dropout
+generator takes the data rank into its seed, never the time rank, so the
+ranks of a time group draw the same masks.
 """
 
 from __future__ import annotations
@@ -43,9 +59,87 @@ class TrainState:
     labels: Dict[str, str]
     ema_params: Optional[Dict[str, torch.Tensor]] = None
     step: int = 0
+    parallel: Optional["Parallel"] = None
 
     def trainable(self):
         return [p for p in self.model.parameters() if p.requires_grad]
+
+    @property
+    def data_size(self) -> int:
+        return self.parallel.mesh.data if self.parallel is not None else 1
+
+
+@dataclass
+class Parallel:
+    """How a state spans processes: its mesh and the wrapper of its data
+    axis: ``ddp`` (a ``DistributedDataParallel`` over every rank) with, under
+    ZeRO-1, the ``zero`` partition; or ``fsdp``. ``plain`` caches the
+    unsharded model that evaluates an FSDP state."""
+
+    mesh: object
+    ddp: Optional[nn.Module] = None
+    zero: Optional[object] = None
+    fsdp: bool = False
+    plain: Optional[nn.Module] = None
+
+    def runner(self, model: nn.Module) -> nn.Module:
+        """The module a train forward goes through."""
+        return self.ddp if self.ddp is not None else model
+
+    @contextlib.contextmanager
+    def grad_sync(self, model: nn.Module, on: bool):
+        """Inside, a backward all-reduces (DDP) or reduce-scatters (FSDP) its
+        gradients only when ``on`` (the last microbatch)."""
+        if on:
+            yield
+        elif self.ddp is not None:
+            with self.ddp.no_sync():
+                yield
+        else:
+            model.set_requires_gradient_sync(False)
+            try:
+                yield
+            finally:
+                model.set_requires_gradient_sync(True)
+
+    def after_backward(self, model: nn.Module) -> None:
+        """FSDP leaves the trunk whole: its gradients are averaged over
+        every rank here, as DDP would (``gather_frames`` scaled the time
+        ranks' shares)."""
+        if not self.fsdp:
+            return
+        import torch.distributed as dist
+        from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+        grads = [p.grad for p in model.backbone.parameters() if p.grad is not None]
+        if grads:
+            flat = _flatten_dense_tensors(grads)
+            dist.all_reduce(flat)
+            flat /= dist.get_world_size()
+            for g, t in zip(grads, _unflatten_dense_tensors(flat, grads)):
+                g.copy_(t)
+
+    def after_step(self, state: "TrainState") -> None:
+        """ZeRO-1: every parameter from its owner."""
+        if self.zero is not None:
+            params = dict(state.model.named_parameters())
+            self.zero.gather({n: params[n] for n in self.zero.owned()},
+                             {n: p.data for n, p in params.items()},
+                             into={n: p.data for n, p in params.items()})
+
+    def sum_over_data(self, x: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        x = x.clone()
+        dist.all_reduce(x, group=self.mesh.data_group)
+        return x
+
+    def mean_over_data(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Each metric's mean over the data ranks (one all-reduce)."""
+        keys = sorted(metrics)
+        flat = self.sum_over_data(torch.stack([metrics[k].detach().float().reshape(()) for k in keys]))
+        flat = flat / self.mesh.data
+        return {k: flat[i] for i, k in enumerate(keys)}
 
 
 def create_train_state(cfg: TubeDETRConfig, model: nn.Module) -> TrainState:
@@ -90,11 +184,13 @@ def to_device(batch: Dict, device: torch.device) -> Dict:
     return out
 
 
-def dropout_seed_for(seed: int, step: int) -> int:
+def dropout_seed_for(seed: int, step: int, data_rank: int = 0) -> int:
     """The dropout generator's seed at ``step``, as JAX folds the step into
     the seed's key (``fold_in``): both mixed into 32 bits, the part of a
-    seed that the CPU generator reads."""
-    return int(np.random.SeedSequence([int(seed), int(step)]).generate_state(1)[0])
+    seed that the CPU generator reads. A data rank other than 0 is mixed in
+    too (each draws its own masks); a time rank never is."""
+    words = [int(seed), int(step)] + ([int(data_rank)] if data_rank else [])
+    return int(np.random.SeedSequence(words).generate_state(1)[0])
 
 
 class TrainStep:
@@ -109,9 +205,10 @@ class TrainStep:
 
     def forward_loss(self, state: TrainState, batch: Dict, num_boxes=None, mean_scale: float = 1.0):
         """(total, losses) of one (micro)batch already on the model's device."""
-        outputs = state.model(**model_inputs(batch), train=True)
+        model = state.model if state.parallel is None else state.parallel.runner(state.model)
+        outputs = model(**model_inputs(batch), train=True)
         losses = self.criterion(outputs, *(batch[k] for k in TARGETS), num_boxes=num_boxes,
-                                mean_scale=mean_scale)
+                                mean_scale=mean_scale, sum_scale=state.data_size)
         return self.criterion.total(losses), losses
 
     def backward(self, total: torch.Tensor) -> None:
@@ -120,9 +217,13 @@ class TrainStep:
     def update(self, state: TrainState, lrs: Dict[str, float]) -> torch.Tensor:
         """Clip, the optimizer step and the EMA; returns the pre-clip norm."""
         params = state.trainable()
-        norm = clip_grad_norm(params, self.cfg.clip_max_norm)
+        par = state.parallel
+        norm = clip_grad_norm(params, self.cfg.clip_max_norm,
+                              par.mesh.data_group if par is not None and par.fsdp else None)
         set_lrs(state.optimizer, lrs)
         state.optimizer.step()
+        if par is not None:
+            par.after_step(state)
         if state.ema_params is not None:
             ema_update(state.ema_params, dict(state.model.named_parameters()), self.cfg.ema_decay)
         # int8 weights cached from the old float weights must not outlive them
@@ -132,38 +233,44 @@ class TrainStep:
 
     def generator(self, state: TrainState, dropout_seed: int, device) -> torch.Generator:
         gen = torch.Generator(device=device)
-        gen.manual_seed(dropout_seed_for(dropout_seed, state.step))
+        data_rank = state.parallel.mesh.data_rank if state.parallel is not None else 0
+        gen.manual_seed(dropout_seed_for(dropout_seed, state.step, data_rank))
         return gen
 
     def __call__(self, state: TrainState, batch: Dict, lrs: Dict[str, float], dropout_seed: int):
-        model = state.model
+        model, par = state.model, state.parallel
         device = next(model.parameters()).device
         batch = to_device(batch, device)
-        model.train(not self.deterministic)
+        (model if par is None else par.runner(model)).train(not self.deterministic)
         state.optimizer.zero_grad(set_to_none=True)
         accum = max(int(self.cfg.grad_accum), 1)
+        num_boxes = None
+        if accum > 1 or state.data_size > 1:
+            t = batch["time_mask"].shape[1]
+            num_boxes = (inter_positive_map(batch["inter_idx"], t) & batch["time_mask"]).sum().float()
+            if state.data_size > 1:
+                num_boxes = par.sum_over_data(num_boxes)
+        n = batch["time_mask"].shape[0] // accum
+        total, losses = 0.0, {}
         with dropout_generator(self.generator(state, dropout_seed, device)):
-            if accum == 1:
-                total, losses = self.forward_loss(state, batch)
-                self.backward(total)
-                total, losses = total.detach(), {k: v.detach() for k, v in losses.items()}
-            else:
-                t = batch["time_mask"].shape[1]
-                num_boxes = (inter_positive_map(batch["inter_idx"], t) & batch["time_mask"]).sum().float()
-                n = batch["time_mask"].shape[0] // accum
-                total, losses = 0.0, {}
-                for i in range(accum):
-                    micro = {k: v[i * n:(i + 1) * n] if torch.is_tensor(v) else v
-                             for k, v in batch.items()}
+            for i in range(accum):
+                micro = batch if accum == 1 else {k: v[i * n:(i + 1) * n] if torch.is_tensor(v) else v
+                                                  for k, v in batch.items()}
+                with (par.grad_sync(model, i == accum - 1) if par is not None
+                      else contextlib.nullcontext()):
                     mt, ml = self.forward_loss(state, micro, num_boxes, 1.0 / accum)
                     self.backward(mt)
-                    total = total + mt.detach()
-                    for k, v in ml.items():
-                        losses[k] = losses.get(k, 0.0) + v.detach()
+                total = total + mt.detach()
+                for k, v in ml.items():
+                    losses[k] = losses.get(k, 0.0) + v.detach()
+        if par is not None:
+            par.after_backward(model)
         norm = self.update(state, lrs)
         model.eval()
         metrics = dict(losses)
         metrics["loss_total"] = total
+        if par is not None and state.data_size > 1:
+            metrics = par.mean_over_data(metrics)
         metrics["grad_norm"] = norm
         return state, metrics
 
@@ -223,3 +330,62 @@ def make_eval_step(cfg: TubeDETRConfig, ema: bool = False):
         return {k: outputs[k] for k in keep if k in outputs}, losses
 
     return step_fn
+
+
+@torch.no_grad()
+def sync_from_rank0(state: TrainState) -> None:
+    """Rank 0's parameters, buffers and EMA on every rank (one broadcast a
+    dtype): replicas built from one seed are equal already, but FSDP shards
+    what each rank holds and DDP broadcasts neither the EMA nor a buffer
+    it is told to leave."""
+    import torch.distributed as dist
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    tensors = [t.data for t in state.model.parameters()] + list(state.model.buffers())
+    if state.ema_params is not None:
+        tensors += list(state.ema_params.values())
+    for dtype in sorted({t.dtype for t in tensors}, key=str):
+        group = [t for t in tensors if t.dtype == dtype]
+        flat = _flatten_dense_tensors(group)
+        dist.broadcast(flat, src=0)
+        for t, v in zip(group, _unflatten_dense_tensors(flat, group)):
+            t.copy_(v)
+
+
+def parallelize(cfg: TubeDETRConfig, state: TrainState, mesh) -> TrainState:
+    """``state`` spread over ``mesh`` (a ``parallel/mesh.py:Mesh``), in
+    place: the model's trunk splits its frames over the time group; the
+    data axis is FSDP (``shard_params``) or DDP over every rank, with ZeRO-1
+    under ``shard_optimizer_state``. Each prints the JAX CLI's line. Call it
+    after ``--resume`` loaded the one-process state: it reshards that. Rank
+    0's weights and EMA go to every rank first (``sync_from_rank0``). A
+    one-process mesh leaves ``state`` as it is."""
+    if not mesh.distributed:
+        return state
+    model = state.model
+    model.time_group = mesh.time_group if mesh.time > 1 else None
+    sync_from_rank0(state)
+    par = Parallel(mesh)
+    if cfg.shard_params:
+        from tubedetr_tpu_torch.parallel.tp import shard_train_state
+
+        shard_train_state(cfg, state, mesh)
+        par.fsdp = True
+        print(f"[shard] fsdp: params + state over data ({mesh.data}-way)")
+    else:
+        from torch.nn.parallel import DistributedDataParallel
+
+        if cfg.shard_optimizer_state:
+            from tubedetr_tpu_torch.parallel.mesh import shard_opt_state_along_data
+
+            par.zero = shard_opt_state_along_data(cfg, state, mesh)
+            print(f"[zero] optimizer state + EMA sharded over data axis ({mesh.data}-way)")
+        device = next(model.parameters()).device
+        # every trainable parameter gets a gradient in every variant: no
+        # find_unused_parameters; the buffers (FrozenBN statistics, int8
+        # maxima) never change in training: sync_from_rank0 made them equal
+        par.ddp = DistributedDataParallel(
+            model, device_ids=[device.index] if device.type == "cuda" else None,
+            broadcast_buffers=False)
+    state.parallel = par
+    return state

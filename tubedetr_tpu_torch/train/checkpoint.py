@@ -56,16 +56,21 @@ def warm_start_surgery(sd: Dict, num_queries: int) -> Dict:
 
 
 def checkpoint_payload(state, epoch: int, cfg, qscales: Optional[Dict] = None) -> Dict:
-    """The payload of ``state`` (a ``TrainState``) after ``epoch``. The
-    tensors are the live ones: ``snapshot`` copies them."""
-    model_sd = state.model.state_dict()
+    """The payload of ``state`` (a ``TrainState``) after ``epoch``, in one
+    process's format whatever the state's sharding: a ZeRO-1 or FSDP state
+    is gathered first (``parallel/mesh.py:full_state_dicts``, a collective:
+    every rank calls this, and rank 0 writes what it returns). The tensors
+    of a replicated state are the live ones: ``snapshot`` copies them."""
+    from tubedetr_tpu_torch.parallel.mesh import full_state_dicts
+
+    model_sd, ema_params, optimizer_sd = full_state_dicts(state)
     ema = None
-    if state.ema_params is not None:
-        ema = {k: state.ema_params.get(k, v) for k, v in model_sd.items()}
+    if ema_params is not None:
+        ema = {k: ema_params.get(k, v) for k, v in model_sd.items()}
     return {
         "model": model_sd,
         "model_ema": ema,
-        "optimizer": None if state.optimizer is None else state.optimizer.state_dict(),
+        "optimizer": optimizer_sd,
         "epoch": int(epoch),
         "args": dataclasses.asdict(cfg),
         "step": int(state.step),
@@ -181,8 +186,9 @@ def load_pretrained(model: torch.nn.Module, path_or_ckpt, rd_init_tsa: bool = Fa
 
 def resume_state(state, ckpt: Dict) -> int:
     """``--resume``: the parameters, the EMA, the optimizer's moments and
-    step counts and the train step count of ``ckpt`` into ``state``;
-    returns the epoch to start at (the saved one + 1)."""
+    step counts and the train step count of ``ckpt`` into ``state``, a
+    one-process state (``parallel/train_step.py:parallelize`` reshards it
+    afterwards); returns the epoch to start at (the saved one + 1)."""
     state.model.load_state_dict(ckpt["model"])
     if state.ema_params is not None and ckpt.get("model_ema") is not None:
         with torch.no_grad():

@@ -6,6 +6,10 @@ runs at the base LRs), stops the process on a non-finite loss and logs.
 ``evaluate`` runs the eval step, slices a padded tail away, reads the
 winning query where ``nq_select`` asks, and feeds the boxes and segments to
 the vIoU evaluator.
+
+Across processes each loop waits at a barrier before its first step (the
+ranks start together) and all-reduces its meters at the end
+(``sync_meters_between_processes``): the stats it returns are the world's.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from tubedetr_tpu_torch.models.postprocess import (
     select_query_by_objectness,
     select_query_by_sted,
 )
+from tubedetr_tpu_torch.parallel.dist import barrier, sync_meters_between_processes
 from tubedetr_tpu_torch.train.logging import MetricLogger
 from tubedetr_tpu_torch.train.optim import base_lrs, current_lrs
 
@@ -49,6 +54,8 @@ def train_one_epoch(cfg: TubeDETRConfig, train_step, state, data_loader: Iterabl
         else:
             prev_epoch = epoch if i > 0 else epoch - 1
             lrs = current_lrs(cfg, prev_epoch, curr_step - 1, num_training_steps)
+        if i == 0:
+            barrier(f"train_first_step_e{epoch}")
         state, metrics = train_step(state, batch, lrs, cfg.seed)
         loss_value = float(metrics["loss_total"])
         if not math.isfinite(loss_value):
@@ -63,6 +70,7 @@ def train_one_epoch(cfg: TubeDETRConfig, train_step, state, data_loader: Iterabl
         if writer is not None and i % 100 == 0:
             for k, v in metrics.items():
                 writer.add_scalar(k, float(v), curr_step)
+    sync_meters_between_processes(logger.meters)
     stats = {k: m.global_avg for k, m in logger.meters.items()}
     return state, stats
 
@@ -190,4 +198,5 @@ def evaluate(cfg: TubeDETRConfig, eval_step, state, data_loader: Iterable, evalu
               "(repeated tail samples over-weighted)")
         for pl in padded_losses:
             logger.update(**pl)
+    sync_meters_between_processes(logger.meters)
     return {k: m.global_avg for k, m in logger.meters.items()}

@@ -28,10 +28,10 @@ checks. Dropout is off on both sides (the dropout-free step).
   against one process, the trunk's gradients included (the gather's
   backward scale); the time-sharded inference in float against the JAX
   package's ``(1, 2)`` mesh (atol 1e-5) and in int8_static with
-  ``fused_bottleneck`` (K2's plain version) against the JAX ``(1, 2)``
-  mesh with the scales the JAX calibration gave (atol 1e-4, the bound
-  ``tests/test_torch_int8.py`` holds the full int8 model to) and against
-  the port's one process, bit for bit.
+  ``fused_bottleneck`` (K2's plain version), with the port's one-process
+  calibration: bit for bit the port's one process, and against the JAX
+  ``(1, 2)`` mesh with those scales within the bound the JAX package holds
+  its own time-sharded int8 inference to (max 0.05, mean 5e-3).
 * Checkpoints: the 2-rank ZeRO and FSDP runs' checkpoints (rank 0 writes
   them, gathered) load in one process with ``resume_state`` and in
   ``GroundingPipeline.reload`` with the runs' tensors exactly; a

@@ -76,12 +76,22 @@ line:
 10. several cards (``phase_dist``): a process a card
    (``torch.cuda.device_count()``, spawned), NCCL, the published training
    config with one video a card: rank 0's one-rank reference, then DDP,
-   ZeRO-1 and FSDP over every card (on 4 cards also data=2 x time=2), each
-   held to the reference within ``TRAIN_LOSS_RTOL``, and the int8_static +
-   K2 eval with the frames split over the cards, K2 exact on every rank.
-   With one card it checks the wiring (every collective is the identity);
-   the ``[dist]`` lines give each rank's warm step, peak memory and, on
-   several cards, NCCL's share of a traced step;
+   ZeRO-1 and FSDP over every card (on 4 cards also data=2 x time=2), then
+   the model axis (``[dist-tp]``: on one card TP, TP + ZeRO-1 and TP + FSDP
+   on a one-rank model group, the layers' f and g engaged; on 4 data=2 x
+   model=2 under TP + FSDP and TP + ZeRO-1, and model=4), each held to the
+   reference within ``TRAIN_LOSS_RTOL``, each with one more step's
+   collective inventory (``[dist-comms]``: kind, axes, bytes a rank; the
+   profiler's count must equal it); the int8_static + K2 eval with the
+   frames split over the cards and the tensor-parallel one, K2 exact with
+   29 launches on every rank; and ``[dist-pp]``: the published encoder and
+   decoder stacks (6 layers each) pipelined (pipe=1 with 4 microbatches on
+   one card, pipe=2 x data=2 on 4) against the sequential stacks, forward
+   and gradients within ``PP_RTOL`` on the same microbatches and
+   ``PP_WHOLE_BATCH_RTOL`` on the whole batch. With one card it checks the wiring
+   (every collective is the identity); the ``[dist]`` lines give each
+   rank's warm step, peak memory and, on several cards, NCCL's share of a
+   traced step;
 11. the probes P1-P5 (``tubedetr_tpu_torch/probes``): both entry points at
    the scripts' full shapes with their launch counts zeroed just before and
    read just after, each kernel held exactly to its plain version, and
@@ -95,7 +105,7 @@ line:
 Then the script's seconds, one ``kernels`` JSON line (each kernel's
 ``launches`` counted on phase 6's path, and by path: serve, the int8 + K2
 pipeline, train, the CLI's int8 eval and its reload request, and K2's on
-rank 0's eval of phase 10), the
+rank 0's time-split and tensor-parallel evals of phase 10), the
 ``nvidia-smi`` line again, and,
 last, the ``ok`` JSON line. There is no CPU path: without a card the script exits 2.
 """
@@ -1881,13 +1891,18 @@ def nccl_profile(prof, wall_s: float) -> dict:
             "nccl_share_of_step": nccl / wall_s if wall_s else None}
 
 
-def dist_train_run(cfg, template, batch, mesh, steps: int, traced: bool) -> dict:
+def dist_train_run(cfg, template, batch, mesh, steps: int, traced: bool, tp=None,
+                   inventory: bool = False) -> dict:
     """``steps`` dropout-free train steps of the published model (a copy of
     ``template``) on ``batch``, spread over ``mesh`` (None: the unwrapped
-    one-process state), then, when ``traced``, one more under
-    ``torch.profiler``: each step's metrics and seconds, the peak memory
-    over the run, the traced step."""
+    one-process state; ``tp``: ``parallelize``'s, True engages the model
+    axis on any mesh), then, when ``traced``, one more under
+    ``torch.profiler``, and with ``inventory`` one more whose collectives
+    are recorded (``parallel/collectives.py``): each step's metrics and
+    seconds, the peak memory over the run, the traced step, the
+    inventory."""
     import copy
+    import gc
 
     import numpy as np
     import torch
@@ -1896,35 +1911,47 @@ def dist_train_run(cfg, template, batch, mesh, steps: int, traced: bool) -> dict
     from tubedetr_tpu_torch.parallel.train_step import create_train_state, parallelize
     from tubedetr_tpu_torch.train.optim import base_lrs
 
+    gc.collect()  # the last run's state holds reference cycles (DDP, FSDP)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = copy.deepcopy(template)
     state = create_train_state(cfg, model)
     if mesh is not None:
-        state = parallelize(cfg, state, mesh)
+        state = parallelize(cfg, state, mesh, tp=tp)
     lrs = base_lrs(cfg)
     step = timed_step(cfg, deterministic=True)
     for _ in range(steps):
         state, _ = step(state, batch, lrs, cfg.seed)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    profiled = None
+    profiled = inv = None
     if traced:
         one = timed_step(cfg, deterministic=True)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             state, _ = one(state, batch, lrs, cfg.seed)
         profiled = nccl_profile(prof, one.split[0]["step_s"])
+    if inventory:
+        from tubedetr_tpu_torch.parallel.collectives import collective_inventory, summary_json
+
+        one = timed_step(cfg, deterministic=True)
+        colls = collective_inventory(lambda: one(state, batch, lrs, cfg.seed), mesh)
+        inv = {"collectives": len(colls), "profiler_events": colls.profiler_events,
+               "rank_bytes": sum(c.rank_bytes for c in colls), "by_kind_axes": summary_json(colls)}
     warm = [s["step_s"] for s in step.split[1:]] or [step.split[0]["step_s"]]
+    layout = getattr(state.model, "tp_layout", None)
     out = {"metrics": step.metrics, "step_s": [s["step_s"] for s in step.split],
            "warm_step_median_s": float(np.median(warm)), "peak_memory_gib": peak,
-           "profile": profiled}
+           "profile": profiled, "inventory": inv,
+           "tp_split_tensors": 0 if layout is None else len(layout.splits)}
     del state, model, step
     torch.cuda.empty_cache()
     return out
 
 
-def dist_int8_eval(cfg, weights, sample, mesh) -> dict:
+def dist_int8_eval(cfg, weights, sample, mesh, tp: bool = False) -> dict:
     """The ``--eval`` forward of the int8_static + K2 model on one 200-frame
-    video with the trunk's frames split over ``mesh``'s time group:
+    video with the trunk's frames split over ``mesh``'s time group (with
+    ``tp``, the transformer and RoBERTa cut over its model group,
+    ``place_variables_tp``, the trunk replicated):
     calibrated on the video (every frame on each rank, the ranks' maximum),
     K2's launches counted over the forward alone, each K2 call's real input
     held exactly to the plain version after the count was read, and the
@@ -1945,6 +1972,10 @@ def dist_int8_eval(cfg, weights, sample, mesh) -> dict:
     qcfg = cfg.replace(backbone_quant="int8_static", fused_bottleneck=True, mesh_time=mesh.time)
     model = build_model(qcfg)
     model.load_state_dict(weights)
+    if tp:
+        from tubedetr_tpu_torch.parallel.tp import place_variables_tp
+
+        place_variables_tp(model, mesh, qcfg)
     model.time_group = mesh.time_group if mesh.time > 1 else None
     device = next(model.parameters()).device
     batch = to_device(collate([sample], qcfg.video_max_len, qcfg.stride, qcfg.max_text_len), device)
@@ -1967,12 +1998,143 @@ def dist_int8_eval(cfg, weights, sample, mesh) -> dict:
     return res
 
 
+# the [dist-pp] leg: the published encoder and decoder stacks pipelined
+PP_MICRO = 4  # microbatches
+PP_CLIPS, PP_VIDEOS, PP_TOKENS = 40, 4, 103  # 200 frames / stride 5; 7 x 13 + 12 tokens
+# relative L2 error of the pipelined stacks against the sequential stack run
+# on the same microbatches (the same products: rounding only), and against
+# the sequential stack on the whole batch, whose products the card's kernels
+# sum in another order (2.5e-4 on the decoder's gradients on an H100)
+PP_RTOL, PP_WHOLE_BATCH_RTOL = 1e-5, 1e-2
+
+
+def dist_pp(world: int) -> dict:
+    """The published encoder and decoder stacks (6 layers each, 256 wide, 8
+    heads, FFN 2048, float32 without TF32, seeded alike on every rank)
+    pipelined with ``PP_MICRO`` microbatches over pipe=1 on one card and
+    pipe=2 x data=2 on four, against the sequential stacks on the same
+    inputs, run on each microbatch alone and on the whole batch (and the
+    whole batch once more, for the run-to-run spread): the outputs, the
+    gradients of this stage's layers and of the inputs (a sum-of-squares
+    loss), each ||diff|| / ||ref|| (a gradient that is zero in exact
+    arithmetic, a key bias's, is noise on both); the seconds of a pipelined
+    and a sequential forward + backward; the inventory of one pipelined
+    step."""
+    import torch
+
+    from tubedetr_tpu_torch.models.transformer import Decoder, Encoder
+    from tubedetr_tpu_torch.parallel.collectives import collective_inventory, summary_json
+    from tubedetr_tpu_torch.parallel.pp import (
+        make_pipe_mesh,
+        pipelined_decoder_apply,
+        pipelined_encoder_apply,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_pipe_mesh(1 if world == 1 else 2, 1 if world == 1 else world // 2)
+    torch.manual_seed(11)
+    d, h, ffn, n = 256, 8, 2048, 6
+    enc, dec = Encoder(n, d, h, ffn).cuda(), Decoder(n, d, h, ffn).cuda()
+    g = torch.Generator(device="cuda").manual_seed(12)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=g) * scale
+
+    x, pos = rand(PP_CLIPS, PP_TOKENS, d), rand(PP_CLIPS, PP_TOKENS, d, scale=0.3)
+    mask = torch.rand(PP_CLIPS, PP_TOKENS, device="cuda", generator=g) > 0.9
+    mask[:, 0] = False
+    b, t = PP_VIDEOS, 200
+    dec_in = [torch.zeros(b, t, d, device="cuda"), rand(b, t, d, scale=0.3),
+              rand(b, t, PP_TOKENS, d), rand(b, t, PP_TOKENS, d, scale=0.3)]
+    dmask = torch.rand(b, t, PP_TOKENS, device="cuda", generator=g) > 0.9
+    dmask[..., 0] = False
+    qpad = torch.arange(t, device="cuda")[None] >= torch.tensor([200, 170, 120, 60], device="cuda")[:, None]
+    qpad[:, 0] = False
+    own = range(mesh.stage * n // mesh.pipe, (mesh.stage + 1) * n // mesh.pipe)
+
+    def split(fn, args, dim):
+        """``fn`` on each microbatch of ``args`` alone, the outputs joined."""
+        n = args[0].shape[0] // PP_MICRO
+        parts = [fn(*[a[i * n:(i + 1) * n] for a in args]) for i in range(PP_MICRO)]
+        return tuple(torch.cat([p[k] for p in parts], dim=dim) for k in range(len(parts[0])))
+
+    def run(which, mode):
+        """``mode``: "pipe", "seq" (the whole batch at once) or "seq_mb"
+        (the sequential stack on each microbatch alone)."""
+        for p in list(enc.parameters()) + list(dec.parameters()):
+            p.grad = None
+        if which == "encoder":
+            xi = x.clone().requires_grad_(True)
+            args = (xi, pos, mask)
+            if mode == "pipe":
+                outs = (pipelined_encoder_apply(enc.layers, *args, mesh=mesh,
+                                                microbatches=PP_MICRO),)
+            elif mode == "seq":
+                outs = (enc(*args),)
+            else:
+                outs = split(lambda *a: (enc(*a),), args, 0)
+            stack = enc.layers
+        else:
+            xi = dec_in[2].clone().requires_grad_(True)  # the memory: an aux input
+            args = (dec_in[0], dec_in[1], xi, dec_in[3], dmask, qpad)
+            if mode == "pipe":
+                hs, tsa, cross = pipelined_decoder_apply(dec.layers, *args, mesh=mesh,
+                                                         microbatches=PP_MICRO)
+                outs = (dec.norm(hs), tsa, cross)
+            elif mode == "seq":
+                outs = dec(*args)
+            else:
+                outs = split(dec, args, 1)
+            stack = dec.layers
+        sum(o.float().square().mean() for o in outs).backward()
+        grads = [q.grad.detach().clone() for i in own for q in stack[i].parameters()]
+        return [o.detach() for o in outs], grads, xi.grad.detach().clone()
+
+    out = {"mesh_data_pipe": [mesh.data, mesh.pipe], "stage": mesh.stage,
+           "microbatches": PP_MICRO}
+    for which in ("encoder", "decoder"):
+        ref, _ = synced(lambda: run(which, "seq"))  # cold
+        got, _ = synced(lambda: run(which, "pipe"))
+        mb = run(which, "seq_mb")
+        again = run(which, "seq")
+        _, t_seq = synced(lambda: run(which, "seq"))
+        _, t_pipe = synced(lambda: run(which, "pipe"))
+
+        def rel(a, b):  # ||a - b|| / ||b|| over the tensors together
+            a = torch.cat([t.double().reshape(-1) for t in a])
+            b = torch.cat([t.double().reshape(-1) for t in b])
+            return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+        def errs(a, b):
+            return {"outputs": rel(a[0], b[0]), "layer_grads": rel(a[1], b[1]),
+                    "input_grad": rel([a[2]], [b[2]])}
+
+        colls = collective_inventory(lambda: run(which, "pipe"), mesh)
+        out[which] = {"max_rel_err": errs(got, mb), "vs_whole_batch": errs(got, ref),
+                      "microbatched_vs_whole_batch": errs(mb, ref),
+                      "whole_batch_rerun": errs(again, ref),
+                      "pipelined_fwd_bwd_s": t_pipe,
+                      "sequential_fwd_bwd_s": t_seq,
+                      "inventory": {"collectives": len(colls),
+                                    "profiler_events": colls.profiler_events,
+                                    "rank_bytes": sum(c.rank_bytes for c in colls),
+                                    "by_kind_axes": summary_json(colls)}}
+    del enc, dec
+    torch.cuda.empty_cache()
+    return out
+
+
 def dist_rank(rank: int, world: int) -> dict:
     """One rank's work in ``phase_dist``: the one-rank reference (rank 0,
     unwrapped, the global batch of ``world`` videos as ``world``
     microbatches), then DDP, ZeRO-1 and FSDP over every rank (on 4 cards also
-    data=2 x time=2), then the time-split int8 + K2 eval. On one card no
-    step is traced: its collectives launch no NCCL kernel."""
+    data=2 x time=2), then the model axis (on one card TP, TP + ZeRO-1 and
+    TP + FSDP on a one-rank model group; on 4 data=2 x model=2 under
+    TP + FSDP and TP + ZeRO-1, and model=4), each run with one more step's
+    collective inventory; then the time-split int8 + K2 eval and the
+    tensor-parallel one; then the pipelined stacks (``dist_pp``). On one
+    card no step is traced: its collectives launch no NCCL kernel."""
     import torch
 
     from tubedetr_tpu_torch.data.collate import collate
@@ -1999,19 +2161,32 @@ def dist_rank(rank: int, world: int) -> dict:
         ref_cfg = cfg.replace(batch_size=world, grad_accum=world)
         out["ref"] = dist_train_run(ref_cfg, template, batch(ref_cfg, samples), None,
                                     steps if world == 1 else 1, traced=False)
-    layouts = [("ddp", (world, 1), {}), ("zero", (world, 1), {"shard_optimizer_state": True}),
-               ("fsdp", (world, 1), {"shard_params": True})]
+    # (name, (data, time, model), config fields, tp)
+    layouts = [("ddp", (world, 1, 1), {}, None),
+               ("zero", (world, 1, 1), {"shard_optimizer_state": True}, None),
+               ("fsdp", (world, 1, 1), {"shard_params": True}, None)]
     if world == 4:
-        layouts.append(("data2xtime2", (2, 2), {"mesh_time": 2}))
-    for name, (data, time_), extra in layouts:
-        mesh = make_mesh(data, time_, "cuda")
+        layouts += [("data2xtime2", (2, 2, 1), {"mesh_time": 2}, None),
+                    ("tp+fsdp data2xmodel2", (2, 1, 2), {"shard_params": True}, None),
+                    ("tp+zero data2xmodel2", (2, 1, 2), {"shard_optimizer_state": True}, None),
+                    ("tp model4", (1, 1, 4), {}, None)]
+    else:
+        layouts += [("tp", (1, 1, 1), {}, True),
+                    ("tp+zero", (1, 1, 1), {"shard_optimizer_state": True}, True),
+                    ("tp+fsdp", (1, 1, 1), {"shard_params": True}, True)]
+    for name, (data, time_, model_), extra, tp in layouts:
+        mesh = make_mesh(data, time_, "cuda", model_)
         per = world // data
-        run_cfg = cfg.replace(batch_size=per, **extra)
+        run_cfg = cfg.replace(batch_size=per, grad_accum=per if model_ > 1 else 1, **extra)
         part = samples[mesh.data_rank * per:(mesh.data_rank + 1) * per]
         out["runs"][name] = dict(dist_train_run(run_cfg, template, batch(run_cfg, part), mesh,
-                                                steps, traced), mesh=[data, time_])
+                                                steps, traced, tp=tp, inventory=True),
+                                 mesh=[data, time_, model_], tp=bool(tp or model_ > 1))
     del template
     out["int8"] = dist_int8_eval(cfg, weights, samples[0], make_mesh(1, world, "cuda"))
+    out["int8_tp"] = dist_int8_eval(cfg, weights, samples[0], make_mesh(1, 1, "cuda", world),
+                                    tp=True)
+    out["pp"] = dist_pp(world)
     return out
 
 
@@ -2041,14 +2216,18 @@ def phase_dist(smi: str):
     config (ResNet-101, RoBERTa-base, 200 frames of 224x398, one video a
     card, dropout off). Rank 0 first runs the one-rank reference (unwrapped,
     the global batch as microbatches); then every rank runs DDP, ZeRO-1 and
-    FSDP over all cards (on 4 cards also data=2 x time=2), ``DIST_STEPS``
-    steps and one traced; each run's metrics are held to the reference
-    (step 0, and on one card every step, where every collective is the
-    identity) within ``TRAIN_LOSS_RTOL``. Then the int8_static + K2 eval
-    with the frames split over every card (50 a card on 4), K2 exact
-    against its plain version on every rank. The ``[dist]`` lines: each
-    run's warm step, peak memory and NCCL share per rank; ``[dist-int8]``
-    each rank's K2 launches. Returns K2's launches on rank 0's eval."""
+    FSDP over all cards (on 4 cards also data=2 x time=2), then the model
+    axis's runs (``dist_rank``), ``DIST_STEPS`` steps, one traced and one
+    inventoried; each run's metrics are held to the reference (step 0,
+    and on one card every step, where every collective is the identity)
+    within ``TRAIN_LOSS_RTOL``. Then the int8_static + K2 eval with the
+    frames split over every card (50 a card on 4) and the tensor-parallel
+    one, K2 exact against its plain version on every rank, and the
+    pipelined stacks (``dist_pp``). The ``[dist]``/``[dist-tp]`` lines:
+    each run's warm step, peak memory and NCCL share per rank;
+    ``[dist-comms]`` each step's collectives; ``[dist-int8]`` and
+    ``[dist-tp]`` each rank's K2 launches; ``[dist-pp]`` the pipelines.
+    Returns K2's launches on rank 0's two evals."""
     import pickle
     import queue
     import socket
@@ -2102,26 +2281,56 @@ def phase_dist(smi: str):
             err = max(abs(run["metrics"][i][k] - ref["metrics"][i][k]) / max(abs(ref["metrics"][i][k]), 1e-12)
                       for i in compared for k in ref["metrics"][i])
             errs.append(err)
-            line = {"card": smi, "cards": world, "run": name, "mesh_data_time": run["mesh"],
+            line = {"card": smi, "cards": world, "run": name,
+                    "mesh_data_time_model": run["mesh"],
                     "rank": r, "steps": len(run["step_s"]), "cold_step_s": run["step_s"][0],
                     "warm_step_median_s": run["warm_step_median_s"],
                     "peak_memory_gib": run["peak_memory_gib"], "traced_step": run["profile"],
                     "loss_total_step0": run["metrics"][0]["loss_total"],
                     "grad_norm_step0": run["metrics"][0]["grad_norm"],
-                    "max_rel_err_vs_one_rank": err}
-            print(f"[dist] {json.dumps(line)}", flush=True)
+                    "max_rel_err_vs_one_rank": err, "tp_split_tensors": run["tp_split_tensors"]}
+            print(f"[{'dist-tp' if run['tp'] else 'dist'}] {json.dumps(line)}", flush=True)
+            inv = run["inventory"]
+            print(f"[dist-comms] {json.dumps({'card': smi, 'cards': world, 'leg': name, 'rank': r, **inv})}",
+                  flush=True)
+            if inv["collectives"] == 0 or inv["collectives"] != inv["profiler_events"]:
+                fail(f"dist: the {name} step's inventory holds {inv['collectives']} collectives, "
+                     f"the profiler {inv['profiler_events']}")
+            if any("?" in e["axes"] for e in inv["by_kind_axes"]):
+                fail(f"dist: the {name} step launched a collective on no axis of its mesh")
+            if run["tp"] and not run["tp_split_tensors"]:
+                fail(f"dist: the {name} run cut no tensor over the model axis")
         if not max(errs) <= TRAIN_LOSS_RTOL:
             fail(f"dist: {name} differs from the one-rank run by {max(errs)} (relative) in its "
                  f"losses or grad norm")
     print(f"[dist] {json.dumps({'card': smi, 'cards': world, 'run': 'one-rank reference', 'warm_step_median_s': ref['warm_step_median_s'], 'peak_memory_gib': ref['peak_memory_gib'], 'grad_norm_step0': ref['metrics'][0]['grad_norm'], 'loss_total_step0': ref['metrics'][0]['loss_total']})}", flush=True)
     for r in range(world):
-        q = got[r]["int8"]
-        print(f"[dist-int8] {json.dumps({'card': smi, 'cards': world, 'rank': r, **q})}", flush=True)
-        if q["k2_launches"] != K2_PER_PASS:
-            fail(f"dist: the int8 eval on rank {r} launched K2 {q['k2_launches']} times, "
-                 f"not {K2_PER_PASS}")
+        for key, tag in (("int8", "dist-int8"), ("int8_tp", "dist-tp")):
+            q = got[r][key]
+            print(f"[{tag}] {json.dumps({'card': smi, 'cards': world, 'rank': r, 'eval': key, **q})}",
+                  flush=True)
+            if q["k2_launches"] != K2_PER_PASS:
+                fail(f"dist: the {key} eval on rank {r} launched K2 {q['k2_launches']} times, "
+                     f"not {K2_PER_PASS}")
+    for r in range(world):
+        pp = got[r]["pp"]
+        for which in ("encoder", "decoder"):
+            leg = pp[which]
+            print(f"[dist-pp] {json.dumps({'card': smi, 'cards': world, 'rank': r, 'stack': which, 'mesh_data_pipe': pp['mesh_data_pipe'], 'stage': pp['stage'], 'microbatches': pp['microbatches'], **{k: v for k, v in leg.items() if k != 'inventory'}})}",
+                  flush=True)
+            inv = leg["inventory"]
+            print(f"[dist-comms] {json.dumps({'card': smi, 'cards': world, 'leg': 'pp ' + which, 'rank': r, **inv})}",
+                  flush=True)
+            if not (max(leg["max_rel_err"].values()) <= PP_RTOL
+                    and max(leg["vs_whole_batch"].values()) <= PP_WHOLE_BATCH_RTOL):
+                fail(f"dist: the pipelined {which} differs from the sequential stack on rank {r}: "
+                     f"{leg['max_rel_err']} (same microbatches), {leg['vs_whole_batch']} (whole "
+                     "batch)")
+            if inv["collectives"] != inv["profiler_events"] or any(
+                    "?" in e["axes"] for e in inv["by_kind_axes"]):
+                fail(f"dist: the pipelined {which}'s inventory on rank {r} is off: {inv}")
     print(f"[dist] phase took {time.perf_counter() - t0:.1f} s", flush=True)
-    return got[0]["int8"]["k2_launches"]
+    return got[0]["int8"]["k2_launches"], got[0]["int8_tp"]["k2_launches"]
 
 
 def main() -> int:
@@ -2172,7 +2381,7 @@ def main() -> int:
     train_launches = phase_train(smi)
     cli_launches = phase_cli(smi)
     phase_cli_small()
-    dist_launches = phase_dist(smi)
+    dist_launches, dist_tp_launches = phase_dist(smi)
     probes = phase_probes()
     # the counts of the serving path, the HTTP server (int8_static + K2);
     # the pipeline's, the training path's and the CLI's beside them
@@ -2184,6 +2393,7 @@ def main() -> int:
                                      "cli int8 eval": cli_launches["int8_eval"][key],
                                      "cli reload request": cli_launches["reload_request"][key]}
     k2["launches_by_path"]["dist int8 eval (rank 0)"] = dist_launches
+    k2["launches_by_path"]["dist tp int8 eval (rank 0)"] = dist_tp_launches
 
     print(f"[time] chip_smoke.py took {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": [k1, k2, *probes]}), flush=True)

@@ -381,22 +381,18 @@ def test_jax_checkpoint_is_refused(tmp_path):
                                   ["--shard_optimizer_state"],
                                   ["--shard_params"]], ids=lambda f: f[0].lstrip("-"))
 def test_mesh_and_sharding_flags_are_refused(flag):
-    """``--mesh_model`` (tensor parallelism) is refused naming the next
-    slice of ROADMAP item 15. The data and time axes and the sharded states
-    are taken (``tests/test_torch_dist.py`` runs them); in one process a
-    mesh wider than 1 x 1 is refused, since each rank drives one card."""
+    """The data, time and model axes and the sharded states are taken
+    (``tests/test_torch_dist.py`` and ``tests/test_torch_tp.py`` run them);
+    in one process a mesh wider than 1 x 1 x 1 is refused, since each rank
+    drives one card."""
     from tubedetr_tpu_torch.parallel.mesh import mesh_shape
 
-    if flag[0] == "--mesh_model":
-        with pytest.raises(NotImplementedError, match="tensor and pipeline parallelism"):
-            config_from_args(flag)
-        return
     cfg = config_from_args(flag)
-    if cfg.mesh_data * cfg.mesh_time > 1:
+    if cfg.mesh_data * cfg.mesh_time * cfg.mesh_model > 1:
         with pytest.raises(ValueError, match="torchrun"):
             mesh_shape(cfg, 1)
     else:
-        assert (cfg.shard_optimizer_state or cfg.shard_params) and mesh_shape(cfg, 1) == (1, 1)
+        assert (cfg.shard_optimizer_state or cfg.shard_params) and mesh_shape(cfg, 1) == (1, 1, 1)
 
 
 @pytest.mark.parametrize("flag", ["--log_quant_drift", "--recalibrate_each_epoch"])

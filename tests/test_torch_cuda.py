@@ -642,3 +642,70 @@ def test_two_rank_nccl_steps_match_one_card(tmp_path):
     for res in ranks:
         for name in ("ddp", "fsdp"):
             R.assert_step_matches(res[name], ref, R.labels_of(cfg))
+
+
+@pytest.mark.parametrize("name", ["tp", "tp_zero", "tp_fsdp"])
+def test_one_rank_nccl_tp_step_matches_the_unwrapped_step(tmp_path, name):
+    """The model axis engaged on a one-rank NCCL model group (every layer's
+    f and g run, each the identity) alone, with ZeRO-1 and with FSDP: one
+    dropout-free step of the tiny model against the unwrapped one, the
+    loss terms and grad norm within rtol 1e-5 and the gradients within
+    ``tests/test_torch_tp.py``'s bounds (the row-parallel bias is added
+    after the product, the head mean is a sum over the group)."""
+    require_cuda()
+    import torch.distributed as dist
+
+    import torch_dist_ranks as R  # beside this file (pytest puts tests/ on the path)
+    from tubedetr_tpu_torch.parallel.dist import init_process_group
+    from tubedetr_tpu_torch.parallel.mesh import make_mesh
+
+    cfg, path = _tiny_dist_setup(tmp_path)
+    extra = {"tp_zero": {"shard_optimizer_state": True},
+             "tp_fsdp": {"shard_params": True}}.get(name, {})
+    batch = R.batch_of()
+    ref = R._strip(R.run_steps(cfg, path, batch, device="cuda"))
+    init_process_group(torch.device("cuda"), 0, 1, f"file://{tmp_path}/store")
+    try:
+        res = R._strip(R.run_steps(cfg.replace(**extra), path, batch, make_mesh(1, 1, "cuda", 1),
+                                   device="cuda", tp=True))
+    finally:
+        dist.destroy_process_group()
+    assert res["tp_split"]
+    for k, v in ref["metrics"][0].items():
+        np.testing.assert_allclose(res["metrics"][0][k], v, rtol=1e-5, err_msg=k)
+    for n, g in ref["grads"].items():
+        np.testing.assert_allclose(res["grads"][n], g, rtol=5e-4, atol=5e-5, err_msg=n)
+
+
+def test_one_rank_nccl_pipeline_matches_the_sequential_encoder(tmp_path):
+    """pipe=1 on a one-rank NCCL group, 4 microbatches: the tiny config's
+    encoder stack (2 layers) pipelined equals the sequential stack, forward
+    and the gradients of the layers and of the input (atol 1e-5)."""
+    require_cuda()
+    import torch.distributed as dist
+
+    from tubedetr_tpu_torch.models.transformer import Encoder
+    from tubedetr_tpu_torch.parallel.dist import init_process_group
+    from tubedetr_tpu_torch.parallel.pp import make_pipe_mesh, pipelined_encoder_apply
+
+    torch.manual_seed(0)
+    enc = Encoder(2, 32, 4, 64).cuda()
+    x = torch.randn(8, 10, 32, device="cuda", requires_grad=True)
+    pos = torch.randn(8, 10, 32, device="cuda") * 0.3
+    mask = torch.rand(8, 10, device="cuda") > 0.8
+    mask[:, 0] = False
+    ref = enc(x, pos, mask)
+    ref.square().mean().backward()
+    want = [x.grad.clone()] + [p.grad.clone() for p in enc.parameters()]
+    x.grad = None
+    enc.zero_grad(set_to_none=True)
+    init_process_group(torch.device("cuda"), 0, 1, f"file://{tmp_path}/store")
+    try:
+        out = pipelined_encoder_apply(enc.layers, x, pos, mask, mesh=make_pipe_mesh(1, 1),
+                                      microbatches=4)
+        out.square().mean().backward()
+    finally:
+        dist.destroy_process_group()
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    for g, w in zip([x.grad] + [p.grad for p in enc.parameters()], want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0)

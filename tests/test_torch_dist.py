@@ -571,15 +571,25 @@ def test_print_is_rank_zero_only_unless_forced(capsys):
 
 
 def test_config_takes_the_data_and_time_axes():
+    """And the model axis: ``validate()`` takes ``mesh_model > 1``, and
+    ``mesh_shape`` refuses a world size that ``mesh_time * mesh_model`` does
+    not divide."""
     cfg = TubeDETRConfig(mesh_data=4, mesh_time=2, shard_optimizer_state=True,
                          shard_params=True).validate()
-    assert mesh_shape(cfg, 8) == (4, 2) and mesh_shape(cfg.replace(mesh_data=1), 8) == (4, 2)
+    assert mesh_shape(cfg, 8) == (4, 2, 1) and mesh_shape(cfg.replace(mesh_data=1), 8) == (4, 2, 1)
     with pytest.raises(ValueError, match="does not divide"):
         mesh_shape(cfg, 7)
     with pytest.raises(ValueError, match="torchrun"):
         mesh_shape(cfg, 1)
-    with pytest.raises(NotImplementedError, match="tensor and pipeline parallelism"):
-        TubeDETRConfig(mesh_model=2).validate()
+    tp = TubeDETRConfig(mesh_model=2, mesh_time=2).validate()
+    assert mesh_shape(tp, 8) == (2, 2, 2) and mesh_shape(tp.replace(mesh_time=1), 8) == (4, 1, 2)
+    for world in (6, 2):
+        with pytest.raises(ValueError, match="does not divide"):
+            mesh_shape(tp, world)
+    with pytest.raises(ValueError, match="torchrun"):
+        mesh_shape(tp, 1)
+    with pytest.raises(ValueError, match="mesh_model"):
+        TubeDETRConfig(mesh_model=0).validate()
     with pytest.raises(ValueError, match="mesh_time"):
         TubeDETRConfig(mesh_time=0).validate()
 

@@ -39,8 +39,8 @@ GRAD_ATOL, GRAD_RTOL = 1e-6, 1e-5
 GROUP_LR = {"main": LRS["lr"], "backbone": LRS["lr_backbone"], "text": LRS["lr_text_encoder"]}
 
 
-def _entry(rank, world, init, fn, args, results, device):
-    torch.set_num_threads(THREADS)
+def _entry(rank, world, init, fn, args, results, device, threads):
+    torch.set_num_threads(threads)
     import torch.distributed as dist
 
     from tubedetr_tpu_torch.parallel.dist import init_process_group
@@ -58,16 +58,18 @@ def _entry(rank, world, init, fn, args, results, device):
             dist.destroy_process_group()
 
 
-def spawn(fn, world: int, tmp, *args, timeout: float = 240.0, device: str = "cpu") -> list:
+def spawn(fn, world: int, tmp, *args, timeout: float = 240.0, device: str = "cpu",
+          threads: int = THREADS) -> list:
     """Each rank's ``fn(rank, world, *args)``, in rank order; raises with
     the first failing rank's traceback. ``device="cuda"``: NCCL, a card a
-    rank."""
+    rank. ``threads``: a rank's CPU threads (``THREADS`` where a result is
+    held bit for bit to one process)."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     init = os.path.join(str(tmp), f"pg-{fn.__name__}")  # a file store must start absent
     if os.path.exists(init):
         os.remove(init)
-    procs = [ctx.Process(target=_entry, args=(r, world, init, fn, args, results, device),
+    procs = [ctx.Process(target=_entry, args=(r, world, init, fn, args, results, device, threads),
                          daemon=True)
              for r in range(world)]
     for p in procs:
@@ -190,18 +192,21 @@ def numpy_dict(d):
 
 class RecordingStep:
     """The dropout-free train step that keeps the pre-clip gradients,
-    whole (an FSDP shard's gathered: a collective on every rank)."""
+    whole (an FSDP shard's and a tensor-parallel slice's gathered: a
+    collective on every rank)."""
 
     def __init__(self, cfg):
-        from tubedetr_tpu_torch.parallel.tp import full
+        from tubedetr_tpu_torch.parallel.tp import full, gather_named, tp_layout_of
         from tubedetr_tpu_torch.parallel.train_step import TrainStep
 
         outer = self
 
         class Step(TrainStep):
             def update(self, state, lrs):
-                outer.grads = {n: full(p.grad).detach().clone() for n, p in
-                               state.model.named_parameters() if p.grad is not None}
+                grads = {n: full(p.grad).detach().clone() for n, p in
+                         state.model.named_parameters() if p.grad is not None}
+                # a tensor-parallel slice's gradient put back whole (a collective)
+                outer.grads = gather_named(grads, tp_layout_of(state.model))
                 return super().update(state, lrs)
 
         self.step = Step(cfg, deterministic=True)
@@ -211,7 +216,7 @@ class RecordingStep:
         return self.step(state, batch, lrs, seed)
 
 
-def run_steps(cfg, weights_path, batch, mesh=None, n_steps=1, resume=None, device="cpu"):
+def run_steps(cfg, weights_path, batch, mesh=None, n_steps=1, resume=None, device="cpu", tp=None):
     """One train state from the saved weights (resumed from the checkpoint
     ``resume`` when given), spread over ``mesh``, ``n_steps`` dropout-free
     steps on ``batch``. Returns a dict of numpy results: each step's
@@ -228,7 +233,7 @@ def run_steps(cfg, weights_path, batch, mesh=None, n_steps=1, resume=None, devic
     if resume:
         resume_state(state, load_checkpoint(resume))
     if mesh is not None:
-        state = parallelize(cfg, state, mesh)
+        state = parallelize(cfg, state, mesh, tp=tp)
     step = RecordingStep(cfg)
     metrics = []
     for _ in range(n_steps):
@@ -238,9 +243,11 @@ def run_steps(cfg, weights_path, batch, mesh=None, n_steps=1, resume=None, devic
     params = {n: model_sd[n] for n, _ in state.model.named_parameters()}
     local_moments = sum(_local(v).numel() for st in state.optimizer.state.values()
                         for k, v in st.items() if k in ("exp_avg", "exp_avg_sq"))
+    layout = getattr(state.model, "tp_layout", None)
     return {
         "metrics": metrics,
         "grads": numpy_dict(step.grads),
+        "tp_split": sorted(layout.splits) if layout is not None else [],
         "params": numpy_dict(params),
         "ema": numpy_dict(ema),
         "opt": snapshot(opt_sd),
@@ -376,3 +383,232 @@ def nccl_ranks(rank, world, weights):
     device = f"cuda:{torch.cuda.current_device()}"
     return {name: _strip(run_steps(cfg_of(**extra), weights, batch, mesh, device=device))
             for name, extra in (("ddp", {}), ("fsdp", {"shard_params": True}))}
+
+
+# ---------------------------------------------------------------------------
+# the model axis (tests/test_torch_tp.py)
+# ---------------------------------------------------------------------------
+
+
+def tp_forward(weights, cfg, inputs, mesh, qscales=None):
+    """The inference forward of the saved weights cut over ``mesh``'s model
+    group (``place_variables_tp``), its trunk's frames split over the time
+    group: ``pred_boxes`` and ``pred_sted``, and the layers left whole."""
+    from tubedetr_tpu_torch.models.layers import MultiHeadAttention
+    from tubedetr_tpu_torch.models.quantize import set_model_qscales
+    from tubedetr_tpu_torch.models.roberta import RobertaAttention
+    from tubedetr_tpu_torch.parallel.tp import place_variables_tp
+
+    model = model_from(weights, cfg)
+    if qscales is not None:
+        set_model_qscales(model, qscales)
+    place_variables_tp(model, mesh, cfg)
+    model.time_group = mesh.time_group if mesh.time > 1 else None
+    with torch.inference_mode():
+        o = model(**{k: torch.from_numpy(v) for k, v in inputs.items()})
+    whole = sorted(n for n, m in model.named_modules()
+                   if isinstance(m, (MultiHeadAttention, RobertaAttention))
+                   and m.model_group is None)
+    return {"pred_boxes": o["pred_boxes"].float().numpy(),
+            "pred_sted": o["pred_sted"].float().numpy(), "whole_attention": whole}
+
+
+def tp_ranks(rank, world, weights, tmp, inputs, qscales):
+    """The model axis on ``world`` ranks. On 2: model=2, one step on the
+    four videos. On 4: data=2 x model=2 (each data rank on its half) under
+    DDP, ZeRO-1 and FSDP (rank 0 writes the DDP and FSDP runs' gathered
+    checkpoints), the one-process checkpoint ``tmp/ckpt1.pth`` resumed
+    under it, time=2 x model=2 and model=4 on the four videos; then inference on ``inputs``:
+    model=4 in float, in int8_static + fused (``qscales``) and with 2 heads
+    (which do not divide: the attention stays whole), and time=2 x
+    model=2."""
+    from tubedetr_tpu_torch.parallel.mesh import make_mesh
+    from tubedetr_tpu_torch.train.checkpoint import checkpoint_payload, save_checkpoint
+
+    out = {}
+    if world == 2:
+        out["tp2"] = _strip(run_steps(cfg_of(), weights, batch_of(), make_mesh(1, 1, "cpu", 2)))
+        return out
+    mesh = make_mesh(2, 1, "cpu", 2)
+    batch = batch_of(VIDEOS[mesh.data_rank * 2:(mesh.data_rank + 1) * 2])
+    for name, extra in (("tp", {}), ("tp_zero", {"shard_optimizer_state": True}),
+                        ("tp_fsdp", {"shard_params": True})):
+        cfg = cfg_of(**extra)
+        res = run_steps(cfg, weights, batch, mesh)
+        if name in ("tp", "tp_fsdp"):
+            payload = checkpoint_payload(res["state"], 0, cfg)
+            if rank == 0:
+                save_checkpoint(os.path.join(tmp, f"ckpt_{name}.pth"), payload)
+        if name == "tp_fsdp":  # the evaluation's copy: whole over data, sliced over model
+            from tubedetr_tpu_torch.parallel.mesh import gather_state
+
+            plain = gather_state(res["state"]).model
+            with torch.inference_mode():
+                o = plain(**{k: torch.from_numpy(v) for k, v in inputs.items()})
+            res["eval_forward"] = {k: o[k].float().numpy() for k in ("pred_boxes", "pred_sted")}
+        out[name] = _strip(res)
+    out["resume_tp"] = _strip(run_steps(cfg_of(shard_optimizer_state=True), weights, batch, mesh,
+                                        resume=os.path.join(tmp, "ckpt1.pth")))
+    out["tp_time"] = _strip(run_steps(cfg_of(mesh_time=2), weights, batch_of(),
+                                      make_mesh(1, 2, "cpu", 2)))
+    mesh4 = make_mesh(1, 1, "cpu", 4)
+    out["tp4"] = _strip(run_steps(cfg_of(), weights, batch_of(), mesh4))
+    out["infer4"] = tp_forward(weights, cfg_of(), inputs, mesh4)
+    out["int8_4"] = tp_forward(weights, cfg_of(backbone_quant="int8_static", fused_bottleneck=True),
+                               inputs, mesh4, qscales)
+    out["heads2"] = tp_forward(weights, cfg_of(nheads=2, text_heads=2), inputs, mesh4)
+    out["time2_model2"] = tp_forward(weights, cfg_of(mesh_time=2), inputs,
+                                     make_mesh(1, 2, "cpu", 2))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the pipeline (tests/test_torch_pp.py)
+# ---------------------------------------------------------------------------
+
+
+class ToyLayer(torch.nn.Module):
+    """One toy layer: ``y + tanh(y @ w + b + aux)``."""
+
+    def __init__(self, w, b):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.as_tensor(w).clone())
+        self.b = torch.nn.Parameter(torch.as_tensor(b).clone())
+
+
+def toy_layer_fn(layer, y, aux):
+    return y + torch.tanh(y @ layer.w + layer.b + aux)
+
+
+def toy_stack(ws, bs):
+    from tubedetr_tpu_torch.parallel.pp import stack_layer_params
+
+    return stack_layer_params([ToyLayer(w, b) for w, b in zip(ws, bs)])
+
+
+def pp_ranks(rank, world, toy, grad_case, enc_case, dec_case):
+    """The pipeline on ``world`` ranks, ``pipe = stages`` and ``data =
+    world // stages``. ``toy``: {(stages, micro): (ws, bs, x, aux)} forward
+    cases; ``grad_case``: (ws, bs, x, aux, tgt), pipe=2, 2 microbatches,
+    the gradients of this stage's layers and of ``x``; ``enc_case`` /
+    ``dec_case``: (layer config, state_dict, inputs) run pipelined; and the
+    preplaced stack."""
+    from tubedetr_tpu_torch.models.transformer import Decoder, Encoder
+    from tubedetr_tpu_torch.parallel.pp import (
+        decoder_stack_params,
+        make_pipe_mesh,
+        pipeline_apply,
+        pipelined_decoder_apply,
+        pipelined_encoder_apply,
+        place_stacked_params,
+    )
+
+    out = {"toy": {}}
+    meshes = {}
+
+    def mesh_of(stages):
+        if stages not in meshes:
+            meshes[stages] = make_pipe_mesh(stages, world // stages)
+        return meshes[stages]
+
+    t = torch.from_numpy
+    for (stages, micro), (ws, bs, x, aux) in toy.items():
+        mesh = mesh_of(stages)
+        y = pipeline_apply(toy_layer_fn, toy_stack(ws, bs), t(x), t(aux), mesh=mesh,
+                           microbatches=micro)
+        out["toy"][(stages, micro)] = y.detach().numpy()
+    ws, bs, x, aux, tgt = grad_case
+    mesh = mesh_of(2)
+    stack = toy_stack(ws, bs)
+    xt = t(x).requires_grad_(True)
+    y = pipeline_apply(toy_layer_fn, stack, xt, t(aux), mesh=mesh, microbatches=2)
+    ((y - t(tgt)) ** 2).mean().backward()
+    per = len(ws) // 2
+    own = range(mesh.stage * per, (mesh.stage + 1) * per)
+    out["grad"] = {"x": xt.grad.numpy(), "stage": mesh.stage,
+                   "layers": {i: (stack[i].w.grad.numpy(), stack[i].b.grad.numpy()) for i in own},
+                   "others_none": all(stack[i].w.grad is None for i in range(len(ws))
+                                      if i not in own)}
+    # the preplaced stack: this stage's layers only, the same numbers
+    mesh = mesh_of(4)
+    full = toy_stack(ws, bs)
+    placed = place_stacked_params(full, mesh)
+    out["placed"] = [pipeline_apply(toy_layer_fn, s, t(x), t(aux), mesh=mesh, microbatches=2).detach().numpy()
+                     for s in (full, placed)]
+    out["placed_layers"] = len(placed.layers)
+    (d, heads, ffn, layers), sd, (xe, pos, mask) = enc_case
+    enc = Encoder(layers, d, heads, ffn)
+    enc.load_state_dict({k: t(v) for k, v in sd.items()})
+    out["enc"] = {}
+    for stages, micro in ((2, 4), (4, 2)):
+        out["enc"][(stages, micro)] = pipelined_encoder_apply(
+            enc.layers, t(xe), t(pos), t(mask), mesh=mesh_of(stages), microbatches=micro).detach().numpy()
+    (d, heads, ffn, layers), sd, args = dec_case
+    dec = Decoder(layers, d, heads, ffn)
+    dec.load_state_dict({k: t(v) for k, v in sd.items()})
+
+    class _Holder(torch.nn.Module):  # decoder_stack_params reads model.transformer.decoder
+        def __init__(self):
+            super().__init__()
+            self.transformer = torch.nn.Module()
+            self.transformer.decoder = dec
+
+    hs, tsa, cross = pipelined_decoder_apply(decoder_stack_params(_Holder()),
+                                             *[t(a) for a in args], mesh=mesh_of(2),
+                                             microbatches=4)
+    out["dec"] = [dec.norm(hs).detach().numpy(), tsa.detach().numpy(), cross.detach().numpy()]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the collective inventory (tests/test_torch_collectives.py)
+# ---------------------------------------------------------------------------
+
+
+def inventory_dicts(inv):
+    return {"colls": [dict(kind=c.kind, axes=c.axes, result_bytes=c.result_bytes,
+                           rank_bytes=c.rank_bytes, group_size=c.group_size, name=c.name,
+                           shapes=c.shapes) for c in inv],
+            "profiler_events": inv.profiler_events}
+
+
+def collective_ranks(rank, world, weights, inputs):
+    """One traced step a leg on 4 ranks: the time-split inference (data=2 x
+    time=2), a ZeRO-1 train step (data=2 x time=2), a TP + FSDP train step
+    (data=2 x model=2) and the toy pipeline (pipe=4)."""
+    from tubedetr_tpu_torch.parallel.collectives import collective_inventory
+    from tubedetr_tpu_torch.parallel.mesh import make_mesh
+    from tubedetr_tpu_torch.parallel.pp import make_pipe_mesh, pipeline_apply
+    from tubedetr_tpu_torch.parallel.train_step import (
+        create_train_state,
+        make_train_step,
+        parallelize,
+    )
+
+    out = {}
+    mesh = make_mesh(2, 2, "cpu")
+    model = model_from(weights, cfg_of(mesh_time=2))
+    model.time_group = mesh.time_group
+    x = {k: torch.from_numpy(v) for k, v in inputs.items()}
+
+    def infer():
+        with torch.inference_mode():
+            return model(**x)["pred_boxes"]
+
+    out["infer"] = inventory_dicts(collective_inventory(infer, mesh))
+    for name, extra, shape in (("zero", {"shard_optimizer_state": True, "mesh_time": 2}, (2, 2, 1)),
+                               ("tp_fsdp", {"shard_params": True}, (2, 1, 2))):
+        mesh = make_mesh(shape[0], shape[1], "cpu", shape[2])
+        cfg = cfg_of(**extra)
+        state = parallelize(cfg, create_train_state(cfg, model_from(weights, cfg)), mesh)
+        batch = batch_of(VIDEOS[mesh.data_rank * 2:(mesh.data_rank + 1) * 2])
+        step = make_train_step(cfg, deterministic=True)
+        out[name] = inventory_dicts(collective_inventory(lambda: step(state, batch, LRS, 0), mesh))
+    mesh = make_pipe_mesh(4)
+    rng = np.random.RandomState(0)
+    stack = toy_stack([rng.randn(8, 8).astype(np.float32) for _ in range(4)],
+                      [np.zeros(8, np.float32)] * 4)
+    xs, aux = torch.ones(8, 8), torch.zeros(8, 8)
+    out["pipe"] = inventory_dicts(collective_inventory(
+        lambda: pipeline_apply(toy_layer_fn, stack, xs, aux, mesh=mesh, microbatches=4), mesh))
+    return out

@@ -7,15 +7,18 @@ On several cards, one process a card, launched by ``torchrun
 --nproc_per_node N -m tubedetr_tpu_torch.apps.train ...`` or ``srun python
 -m tubedetr_tpu_torch.apps.train ...`` (``parallel/dist.py`` reads either's
 environment; NCCL on the card, gloo with ``--device cpu``). Ranks other
-than 0 print only what is forced. The ``(data, time)`` mesh spans every
-process (``--mesh_time`` of them split a video's frames; the data axis
-widens to the rest), the data seed is ``seed + data rank`` while the model
+than 0 print only what is forced. The ``(data, time, model)`` mesh spans
+every process (``--mesh_time`` of them split a video's frames,
+``--mesh_model`` of them hold the slices of the transformer's and
+RoBERTa's layers and print the JAX CLI's ``tp: N param leaves over model``
+line; the data axis widens to the rest), the data seed is ``seed + data rank`` while the model
 and the shuffle read ``seed`` alone, and each data rank's loaders read its
 share of the samples. ``--shard_optimizer_state`` (ZeRO-1) and
 ``--shard_params`` (FSDP) print the JAX package's ``[zero]`` and ``[shard]``
 lines. The evaluation runs each data rank's share (a tail batch padded by
-repeating its last sample, sliced away before the merge) on replicated
-weights (a sharded state gathered first), then merges the vIoU predictions
+repeating its last sample, sliced away before the merge) on weights
+replicated over the data axis (a sharded state gathered first; the
+tensor-parallel slices stay sliced, ``--eval`` included), then merges the vIoU predictions
 and the meters; the int8 scales are the maximum over the ranks. Rank 0
 alone writes the checkpoints (one process's format, gathered), ``log.txt``
 and ``log_stats.json``.
@@ -224,7 +227,8 @@ def _run(cfg, stats: Optional[RunStats], distributed: bool) -> int:
     on_card = device.type == "cuda"
     print(get_sha())
     print(f"config: {cfg}")
-    mesh = make_mesh(*mesh_shape(cfg, tdist.get_world_size()), device.type)
+    data, time_, model_ = mesh_shape(cfg, tdist.get_world_size())
+    mesh = make_mesh(data, time_, device.type, model_)
 
     # the data seed is the seed plus the data rank; the model, the loaders'
     # shuffle and the epoch chunks (which the data ranks share) read the
@@ -250,8 +254,16 @@ def _run(cfg, stats: Optional[RunStats], distributed: bool) -> int:
     start_epoch = 0
     if cfg.resume:
         start_epoch = resume_state(state, load_checkpoint(cfg.resume))
-    if cfg.evaluate_only:  # replicated weights; the time group splits the frames
+    if cfg.evaluate_only:  # the time group splits the frames
         model.time_group = mesh.time_group if mesh.time > 1 else None
+        if mesh.model > 1:  # the evaluation runs on the tensor-parallel slices
+            from tubedetr_tpu_torch.parallel.tp import count_tp_sharded, shard_tp
+            from tubedetr_tpu_torch.parallel.train_step import sync_from_rank0
+
+            n = count_tp_sharded(model, mesh.model, cfg.nheads, cfg.text_heads)
+            sync_from_rank0(state)
+            shard_tp(cfg, state, mesh)
+            print(f"[shard] tp: {n} param leaves over model ({mesh.model}-way)")
     else:  # a one-process state (resumed) resharded over the mesh
         state = parallelize(cfg, state, mesh)
 

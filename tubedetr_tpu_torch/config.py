@@ -6,9 +6,10 @@ package lays its work out on the TPU, with the same result, are kept for
 that interchange: ``space_to_depth_stem`` and ``unroll_quant_fast`` change
 nothing here, and ``scan_backbone_blocks`` picks only the layout of a
 qscales tree. ``validate()`` rejects every setting this port does not run
-yet, naming the ROADMAP item that will bring each: ``mesh_model`` other
-than 1 among them, so none passes unread (the data and time axes and the
-sharded states run: ``parallel/``). The
+yet, naming the ROADMAP item that will bring each, so none passes unread
+(the data, time and model axes and the sharded states run: ``parallel/``;
+a world size that ``mesh_time * mesh_model`` does not divide is refused by
+``parallel/mesh.py:mesh_shape``). The
 int8 backbone modes ``int8`` and ``int8_static`` (with or without ``fused_bottleneck``) run on
 the frozen-BN ResNets; every ``fast_mode`` and ``num_queries > 1`` run,
 and ``validate()`` accepts and refuses those fields as the JAX package's
@@ -241,12 +242,8 @@ class TubeDETRConfig:
             raise ValueError(f"mesh_data must be >= 1 (or -1: every rank), got {self.mesh_data}")
         if self.mesh_time < 1:
             raise ValueError(f"mesh_time must be >= 1, got {self.mesh_time}")
-        if self.mesh_model != 1:
-            raise NotImplementedError(
-                f"mesh_model={self.mesh_model}: tensor parallelism comes with ROADMAP queue 1 "
-                "item 15's 'tensor and pipeline parallelism'; the port runs the data and time "
-                "axes (--mesh_data, --mesh_time, --shard_optimizer_state, --shard_params)"
-            )
+        if self.mesh_model < 1:
+            raise ValueError(f"mesh_model must be >= 1, got {self.mesh_model}")
         if self.log_quant_drift or self.recalibrate_each_epoch:
             raise NotImplementedError(
                 "--log_quant_drift and --recalibrate_each_epoch act on the quantized "

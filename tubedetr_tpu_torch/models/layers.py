@@ -4,6 +4,10 @@ Attention is plain matmul + softmax: the decoder's outputs include the
 head-averaged attention weights, which a fused attention kernel does not
 return. Parameters keep the reference's packed ``in_proj_weight`` layout.
 
+With a ``model_group`` (set by ``parallel/tp.py``) a layer holds a slice
+of its weights: ``column_in`` and ``row_out`` put Megatron's f and g
+(``core/sharding.py``) around the sharded middle.
+
 ``Dropout`` is active only in train mode, at the sites where the JAX modules
 apply ``nn.Dropout``. Its masks come from the ``torch.Generator`` that
 ``dropout_generator`` installs for the calling context (the train step's,
@@ -19,6 +23,8 @@ from typing import Optional
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from tubedetr_tpu_torch.core.sharding import from_model, to_model
 
 NEG_INF = -1e30
 
@@ -81,15 +87,35 @@ def attend(q, k, v, num_heads: int, key_pad_mask: Optional[torch.Tensor] = None,
     return out, weights
 
 
+def column_in(x: torch.Tensor, group) -> torch.Tensor:
+    """A column-parallel layer's input (f); ``x`` itself without a group."""
+    return to_model(x, group)
+
+
+def row_out(linear: nn.Linear, x: torch.Tensor, group) -> torch.Tensor:
+    """``linear`` applied to ``x``; with a group, ``linear`` holds a slice of
+    its input columns: the ranks' partial products summed (g), the bias
+    added once after the sum."""
+    if group is None:
+        return linear(x)
+    return from_model(F.linear(x, linear.weight), group) + linear.bias
+
+
 class MultiHeadAttention(nn.Module):
     """Batch-first MHA with ``torch.nn.MultiheadAttention``'s parameter names
     (packed ``in_proj_weight``/``in_proj_bias``, ``out_proj``). Returns the
     output and the weights averaged over heads; ``dropout`` acts on the
-    attention weights."""
+    attention weights.
+
+    Tensor-parallel (``model_group`` set): the rank holds ``local_heads``
+    whole heads, its packed rows ``[q_r; k_r; v_r]`` and the matching input
+    columns of ``out_proj``; the head mean is completed over the group."""
 
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.local_heads = num_heads
+        self.model_group = None
         self.dropout = Dropout(dropout) if dropout > 0.0 else None
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
@@ -97,13 +123,23 @@ class MultiHeadAttention(nn.Module):
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, query, key, value, key_pad_mask: Optional[torch.Tensor] = None):
+        group = self.model_group
+        if group is not None:  # f once for each distinct input
+            entered = {}
+            for x in (query, key, value):
+                if id(x) not in entered:
+                    entered[id(x)] = column_in(x, group)
+            query, key, value = (entered[id(x)] for x in (query, key, value))
         wq, wk, wv = self.in_proj_weight.chunk(3)
         bq, bk, bv = self.in_proj_bias.chunk(3)
         out, weights = attend(
             F.linear(query, wq, bq), F.linear(key, wk, bk), F.linear(value, wv, bv),
-            self.num_heads, key_pad_mask, self.dropout,
+            self.local_heads, key_pad_mask, self.dropout,
         )
-        return self.out_proj(out), weights.mean(dim=1)
+        if group is None:
+            return self.out_proj(out), weights.mean(dim=1)
+        return (row_out(self.out_proj, out, group),
+                from_model(weights.sum(dim=1) / self.num_heads, group))
 
 
 class MLP(nn.Module):

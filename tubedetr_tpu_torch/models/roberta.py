@@ -5,6 +5,12 @@ Module names follow HuggingFace ``RobertaModel`` (``embeddings.*``,
 reference checkpoint stores its text encoder. Only ``last_hidden_state`` is
 computed: no pooler. Post-LN blocks, exact (erf) GELU. Hidden and attention
 dropout (0.1) act in train mode, at the JAX module's sites.
+
+Tensor-parallel (``model_group`` set by ``parallel/tp.py``): the attention
+holds ``local_heads`` whole heads (query/key/value by output rows,
+``attention.output.dense`` by input columns), the FFN ``intermediate`` by
+rows and ``output.dense`` by columns, and the embedding tables a slice of
+the hidden dim, gathered before their LayerNorm.
 """
 
 from __future__ import annotations
@@ -15,7 +21,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from tubedetr_tpu_torch.models.layers import Dropout, attend
+from tubedetr_tpu_torch.core.sharding import gather_hidden
+from tubedetr_tpu_torch.models.layers import Dropout, attend, column_in, row_out
 
 
 @dataclass(frozen=True)
@@ -59,6 +66,7 @@ class RobertaEmbeddings(nn.Module):
         self.token_type_embeddings = nn.Embedding(c.type_vocab_size, c.hidden_size)
         self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.ln_eps)
         self.dropout = Dropout(c.hidden_dropout)
+        self.model_group = None
 
     def forward(self, input_ids, pad_mask):
         pos_ids = roberta_position_ids(
@@ -69,6 +77,7 @@ class RobertaEmbeddings(nn.Module):
             + self.position_embeddings(pos_ids)
             + self.token_type_embeddings(torch.zeros_like(input_ids))
         )
+        x = gather_hidden(x, self.model_group)
         return self.dropout(self.LayerNorm(x))
 
 
@@ -76,13 +85,14 @@ class RobertaSelfAttention(nn.Module):
     def __init__(self, c: RobertaConfig):
         super().__init__()
         self.num_heads = c.num_attention_heads
+        self.local_heads = c.num_attention_heads
         self.query = nn.Linear(c.hidden_size, c.hidden_size)
         self.key = nn.Linear(c.hidden_size, c.hidden_size)
         self.value = nn.Linear(c.hidden_size, c.hidden_size)
         self.dropout = Dropout(c.attention_dropout) if c.attention_dropout > 0.0 else None
 
     def forward(self, x, key_pad_mask):
-        out, _ = attend(self.query(x), self.key(x), self.value(x), self.num_heads, key_pad_mask,
+        out, _ = attend(self.query(x), self.key(x), self.value(x), self.local_heads, key_pad_mask,
                         self.dropout)
         return out
 
@@ -93,9 +103,11 @@ class RobertaAttention(nn.Module):
         self.self = RobertaSelfAttention(c)
         self.output = _Dense(c.hidden_size, c.hidden_size, c.ln_eps)
         self.dropout = Dropout(c.hidden_dropout)
+        self.model_group = None
 
     def forward(self, x, key_pad_mask):
-        h = self.dropout(self.output.dense(self.self(x, key_pad_mask)))
+        g = self.model_group
+        h = self.dropout(row_out(self.output.dense, self.self(column_in(x, g), key_pad_mask), g))
         return self.output.LayerNorm(x + h)
 
 
@@ -106,11 +118,13 @@ class RobertaLayer(nn.Module):
         self.intermediate = _Dense(c.hidden_size, c.intermediate_size)
         self.output = _Dense(c.intermediate_size, c.hidden_size, c.ln_eps)
         self.dropout = Dropout(c.hidden_dropout)
+        self.model_group = None
 
     def forward(self, x, key_pad_mask):
         x = self.attention(x, key_pad_mask)
-        h = F.gelu(self.intermediate.dense(x))  # exact erf GELU
-        return self.output.LayerNorm(x + self.dropout(self.output.dense(h)))
+        g = self.model_group
+        h = F.gelu(self.intermediate.dense(column_in(x, g)))  # exact erf GELU
+        return self.output.LayerNorm(x + self.dropout(row_out(self.output.dense, h, g)))
 
 
 class RobertaEncoder(nn.Module):

@@ -36,7 +36,13 @@ from torch.nn import functional as F
 
 from tubedetr_tpu_torch.core.embeddings import time_embedding_sine
 from tubedetr_tpu_torch.core.masking import frame_to_clip
-from tubedetr_tpu_torch.models.layers import Dropout, FeatureResizer, MultiHeadAttention
+from tubedetr_tpu_torch.models.layers import (
+    Dropout,
+    FeatureResizer,
+    MultiHeadAttention,
+    column_in,
+    row_out,
+)
 from tubedetr_tpu_torch.models.roberta import RobertaConfig, RobertaModel
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default, as in the reference's layers
@@ -55,12 +61,14 @@ class EncoderLayer(nn.Module):
         self.dropout = Dropout(dropout)
         self.dropout1 = Dropout(dropout)
         self.dropout2 = Dropout(dropout)
+        self.model_group = None  # tensor-parallel FFN (parallel/tp.py)
 
     def forward(self, x, pos, key_pad_mask):
         qk = x + pos
         attn, weights = self.self_attn(qk, qk, x, key_pad_mask)
         x = self.norm1(x + self.dropout1(attn))
-        h = self.linear2(self.dropout(F.relu(self.linear1(x))))
+        g = self.model_group
+        h = row_out(self.linear2, self.dropout(F.relu(self.linear1(column_in(x, g)))), g)
         x = self.norm2(x + self.dropout2(h))
         return x, weights
 
@@ -100,6 +108,7 @@ class DecoderLayer(nn.Module):
         self.dropout1 = Dropout(dropout)
         self.dropout3 = Dropout(dropout)
         self.dropout4 = Dropout(dropout)
+        self.model_group = None  # tensor-parallel FFN (parallel/tp.py)
 
     def forward(self, tgt, query_pos, memory, memory_pos, memory_pad_mask, query_pad_mask):
         """tgt/query_pos (B, T*nq, D), frame-major; memory/memory_pos
@@ -119,7 +128,8 @@ class DecoderLayer(nn.Module):
             q, k, memory.reshape(b * t, s, d), memory_pad_mask.reshape(b * t, s)
         )
         tgt = self.norm3(tgt + self.dropout3(ca.reshape(b, tq, d)))
-        h = self.linear2(self.dropout(F.relu(self.linear1(tgt))))
+        g = self.model_group
+        h = row_out(self.linear2, self.dropout(F.relu(self.linear1(column_in(tgt, g)))), g)
         tgt = self.norm4(tgt + self.dropout4(h))
         return tgt, weights, cross_weights.reshape(b, tq, s)
 

@@ -12,8 +12,11 @@ dropout seed and the step number. ``TrainStep``'s three phases are public so
 that a caller can time them apart.
 
 Across processes (``parallelize``, over a ``parallel/mesh.py`` mesh): the
-data axis is DDP over every rank with the frozen stem and layer1 left out
-(they have no gradient); ``grad_accum`` holds the all-reduce back until the
+model axis (``mesh_model``, ``parallel/tp.py``) cuts the transformer's and
+RoBERTa's weights into slices first; the data axis is DDP over the replica
+group (every rank of this rank's model index: all of them when
+``mesh_model = 1``) with the frozen stem and layer1 left out (they have no
+gradient); ``grad_accum`` holds the all-reduce back until the
 last microbatch (``no_sync``); ``num_boxes`` is the data ranks' sum, and a
 rank's box losses are scaled by the data size, so DDP's mean over ranks is
 the global batch's loss; the metrics are averaged over the data ranks, so
@@ -21,11 +24,12 @@ every rank logs, and stops on, the global batch's loss. ZeRO-1
 (``shard_optimizer_state``) steps the parameters a rank owns and broadcasts
 them; FSDP (``shard_params``, ``parallel/tp.py``) shards the transformer
 and the text encoder, and the trunk's gradients (FSDP leaves the trunk
-whole) are all-reduced by hand. The clip reads the norm of the whole
-gradient, and the EMA updates each rank's share. ``mesh_time > 1`` splits
+whole) are all-reduced by hand over the replica group. The clip reads the
+norm of the whole gradient (a tensor-parallel slice's squares summed over
+the model group), and the EMA updates each rank's share. ``mesh_time > 1`` splits
 the trunk's frames over the time group (``core/sharding.py``); the dropout
-generator takes the data rank into its seed, never the time rank, so the
-ranks of a time group draw the same masks.
+generator takes the data rank into its seed, never the time or the model
+rank, so the ranks of a time group or a model group draw the same masks.
 """
 
 from __future__ import annotations
@@ -72,9 +76,10 @@ class TrainState:
 @dataclass
 class Parallel:
     """How a state spans processes: its mesh and the wrapper of its data
-    axis: ``ddp`` (a ``DistributedDataParallel`` over every rank) with, under
-    ZeRO-1, the ``zero`` partition; or ``fsdp``. ``plain`` caches the
-    unsharded model that evaluates an FSDP state."""
+    axis: ``ddp`` (a ``DistributedDataParallel`` over the replica group)
+    with, under ZeRO-1, the ``zero`` partition; or ``fsdp``. ``plain`` caches
+    the unsharded model that evaluates an FSDP state. The tensor-parallel
+    layout lives on the model (``model.tp_layout``)."""
 
     mesh: object
     ddp: Optional[nn.Module] = None
@@ -104,8 +109,8 @@ class Parallel:
 
     def after_backward(self, model: nn.Module) -> None:
         """FSDP leaves the trunk whole: its gradients are averaged over
-        every rank here, as DDP would (``gather_frames`` scaled the time
-        ranks' shares)."""
+        the replica group here, as DDP would (``gather_frames`` scaled the
+        time ranks' shares)."""
         if not self.fsdp:
             return
         import torch.distributed as dist
@@ -114,8 +119,9 @@ class Parallel:
         grads = [p.grad for p in model.backbone.parameters() if p.grad is not None]
         if grads:
             flat = _flatten_dense_tensors(grads)
-            dist.all_reduce(flat)
-            flat /= dist.get_world_size()
+            group = self.mesh.replica_group
+            dist.all_reduce(flat, group=group)
+            flat /= dist.get_world_size(group)
             for g, t in zip(grads, _unflatten_dense_tensors(flat, grads)):
                 g.copy_(t)
 
@@ -216,10 +222,16 @@ class TrainStep:
 
     def update(self, state: TrainState, lrs: Dict[str, float]) -> torch.Tensor:
         """Clip, the optimizer step and the EMA; returns the pre-clip norm."""
-        params = state.trainable()
-        par = state.parallel
-        norm = clip_grad_norm(params, self.cfg.clip_max_norm,
-                              par.mesh.data_group if par is not None and par.fsdp else None)
+        from tubedetr_tpu_torch.parallel.tp import tp_layout_of
+
+        par, layout = state.parallel, tp_layout_of(state.model)
+        named = [(n, p) for n, p in state.model.named_parameters() if p.requires_grad]
+        params = [p for _, p in named]
+        norm = clip_grad_norm(
+            params, self.cfg.clip_max_norm,
+            par.mesh.data_group if par is not None and par.fsdp else None,
+            None if layout is None else [n in layout.splits for n, _ in named],
+            None if layout is None else layout.group)
         set_lrs(state.optimizer, lrs)
         state.optimizer.step()
         if par is not None:
@@ -334,9 +346,10 @@ def make_eval_step(cfg: TubeDETRConfig, ema: bool = False):
 
 @torch.no_grad()
 def sync_from_rank0(state: TrainState) -> None:
-    """Rank 0's parameters, buffers and EMA on every rank (one broadcast a
-    dtype): replicas built from one seed are equal already, but FSDP shards
-    what each rank holds and DDP broadcasts neither the EMA nor a buffer
+    """Rank 0's parameters, buffers and EMA on every rank of the world group
+    (one broadcast a dtype): replicas built from one seed are equal already,
+    but FSDP and tensor parallelism cut what each rank holds (they run after
+    this, on whole tensors) and DDP broadcasts neither the EMA nor a buffer
     it is told to leave."""
     import torch.distributed as dist
     from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
@@ -347,25 +360,33 @@ def sync_from_rank0(state: TrainState) -> None:
     for dtype in sorted({t.dtype for t in tensors}, key=str):
         group = [t for t in tensors if t.dtype == dtype]
         flat = _flatten_dense_tensors(group)
-        dist.broadcast(flat, src=0)
+        dist.broadcast(flat, src=0, group=dist.group.WORLD)
         for t, v in zip(group, _unflatten_dense_tensors(flat, group)):
             t.copy_(v)
 
 
-def parallelize(cfg: TubeDETRConfig, state: TrainState, mesh) -> TrainState:
+def parallelize(cfg: TubeDETRConfig, state: TrainState, mesh, tp: Optional[bool] = None) -> TrainState:
     """``state`` spread over ``mesh`` (a ``parallel/mesh.py:Mesh``), in
     place: the model's trunk splits its frames over the time group; the
-    data axis is FSDP (``shard_params``) or DDP over every rank, with ZeRO-1
-    under ``shard_optimizer_state``. Each prints the JAX CLI's line. Call it
-    after ``--resume`` loaded the one-process state: it reshards that. Rank
-    0's weights and EMA go to every rank first (``sync_from_rank0``). A
-    one-process mesh leaves ``state`` as it is."""
+    model axis cuts the split weights (``tp``: None engages it when
+    ``mesh.model > 1``, True on any mesh, a one-rank model group included);
+    the data axis is FSDP (``shard_params``) or DDP over the replica group,
+    with ZeRO-1 under ``shard_optimizer_state``. Each prints the JAX CLI's
+    line. Call it after ``--resume`` loaded the one-process state: it
+    reshards that. Rank 0's weights and EMA go to every rank first
+    (``sync_from_rank0``). A one-process mesh leaves ``state`` as it is."""
     if not mesh.distributed:
         return state
     model = state.model
     model.time_group = mesh.time_group if mesh.time > 1 else None
     sync_from_rank0(state)
     par = Parallel(mesh)
+    if tp or (tp is None and mesh.model > 1):
+        from tubedetr_tpu_torch.parallel.tp import count_tp_sharded, shard_tp
+
+        n = count_tp_sharded(model, mesh.model, cfg.nheads, cfg.text_heads)
+        shard_tp(cfg, state, mesh)
+        print(f"[shard] tp: {n} param leaves over model ({mesh.model}-way)")
     if cfg.shard_params:
         from tubedetr_tpu_torch.parallel.tp import shard_train_state
 
@@ -386,6 +407,6 @@ def parallelize(cfg: TubeDETRConfig, state: TrainState, mesh) -> TrainState:
         # maxima) never change in training: sync_from_rank0 made them equal
         par.ddp = DistributedDataParallel(
             model, device_ids=[device.index] if device.type == "cuda" else None,
-            broadcast_buffers=False)
+            broadcast_buffers=False, process_group=mesh.replica_group)
     state.parallel = par
     return state

@@ -22,7 +22,7 @@
 from __future__ import annotations
 
 from bisect import bisect_right
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -190,24 +190,37 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if hasattr(t, "to_local") else t
 
 
-def clip_grad_norm(params: List[torch.Tensor], max_norm: float, shard_group=None) -> torch.Tensor:
+def clip_grad_norm(params: List[torch.Tensor], max_norm: float, shard_group=None,
+                   split: Optional[List[bool]] = None, model_group=None) -> torch.Tensor:
     """Scale the gradients that exist by ``max_norm / norm`` when their
     global L2 norm is ``>= max_norm`` (``optax.clip_by_global_norm``);
     returns the norm before the clip, in float32. Gradients sharded by FSDP
     (DTensors) hold a share of their elements a rank: their squares are
-    summed over ``shard_group`` (the data ranks), the others' counted once."""
-    grads = [p.grad for p in params if p.grad is not None]
+    summed over ``shard_group`` (the data ranks). ``split`` marks the
+    parameters that are tensor-parallel slices (``parallel/tp.py``): their
+    squares are then summed over ``model_group`` too; every other gradient
+    is the same on each model rank and counted once."""
+    import torch.distributed as dist
+
+    keep = [i for i, p in enumerate(params) if p.grad is not None]
+    grads = [params[i].grad for i in keep]
     if not grads:
         return torch.zeros(())
     sq = [torch.sum(_local(g).float() * _local(g).float()) for g in grads]
     sharded = [hasattr(g, "to_local") for g in grads]
-    if any(sharded):
-        import torch.distributed as dist
+    sliced = [False] * len(grads) if split is None else [split[i] for i in keep]
+    zero = torch.zeros((), dtype=torch.float32, device=sq[0].device)
 
-        part = sum(s for s, sh in zip(sq, sharded) if sh)
-        dist.all_reduce(part, group=shard_group)
-        sq = [part] + [s for s, sh in zip(sq, sharded) if not sh]
-    norm = torch.sqrt(sum(sq))
+    def total(fsdp: bool, tp: bool):
+        return sum((s for s, sh, t in zip(sq, sharded, sliced) if sh == fsdp and t == tp), zero)
+
+    fsdp = torch.stack([total(True, True), total(True, False)])
+    if any(sharded):
+        dist.all_reduce(fsdp, group=shard_group)
+    tp = fsdp[0] + total(False, True)
+    if model_group is not None:
+        dist.all_reduce(tp, group=model_group)
+    norm = torch.sqrt(tp + fsdp[1] + total(False, False))
     if max_norm > 0 and float(norm) >= max_norm:
         for g in grads:
             g = _local(g)

@@ -36,10 +36,17 @@ line:
    K1 once a request and K2 29 times a backbone pass, counted over the HTTP
    requests alone;
 7. the other inference configurations: each ``fast_mode`` (gating,
-   transformer, pool, noslow) and ``num_queries=3`` on the small config,
-   card against CPU on the same frames (the selectors' winners equal), the
+   transformer, pool, noslow), ``num_queries=3``, the model flags
+   (``learned``, ``v2``, ``v3``, ``no_tsa``, ``learn_time_embed``,
+   ``no_time_embed``) and the GroupNorm trunk on the small config, card
+   against CPU on the same frames (the selectors' winners equal), the
    tubes scored by ``VIoUEvaluator`` on both; ``fast_mode="transformer"``
-   at full width in bf16, one warm B=2 call;
+   at full width in bf16, one warm B=2 call; ``learned`` +
+   ``learn_time_embed`` and ``no_tsa`` + ``no_time_embed`` at full width in
+   int8_static + K2 (a cold and a warm B=2 call each, K1 once a request and
+   held to its plain version on the request's frames, K2 29 times a pass
+   and exact on the inputs it got); ``resnet101-gn`` at full width in bf16,
+   one training step and one serving call;
 8. training (``phase_train_small``, ``phase_train``): one small
    dropout-free train step (B=2, ragged durations, fast branch,
    ``grad_accum=2``, AdamW, EMA) card against CPU from the same weights and
@@ -56,7 +63,14 @@ line:
    forward + loss, backward and clip + optimizer + EMA, the trunk's passes
    alone, peak memory with remat on and off, the pre-clip grad norms, beside
    the card's name and power limit; ``[train-profile]``: one warm step under
-   ``torch.profiler``;
+   ``torch.profiler``; ``[train-bf16]``: the same epoch in bfloat16 compute
+   with float32 state (parameters, gradients, AdamW moments and EMA checked
+   float32, bfloat16 activations seen by hooks, the frozen tensors
+   unchanged), its split, trunk passes and peak beside the float32 ones,
+   and the step-0 dropout-free loss in both dtypes; ``[remat]``: each
+   ``remat_policy`` (full, save_mid, save_acts, off) in bfloat16, the
+   forward + backward seconds and peak memory, the gradients equal to the
+   bit with deterministic kernels;
 9. the train CLI (``phase_cli``, ``phase_cli_small``): ``apps/train.py:main``
    at the published training config over a VidSTG-layout set it writes (4
    train and 2 val videos of 200 frames of 360x640): one epoch with three
@@ -88,7 +102,9 @@ line:
    decoder stacks (6 layers each) pipelined (pipe=1 with 4 microbatches on
    one card, pipe=2 x data=2 on 4) against the sequential stacks, forward
    and gradients within ``PP_RTOL`` on the same microbatches and
-   ``PP_WHOLE_BATCH_RTOL`` on the whole batch. With one card it checks the wiring
+   ``PP_WHOLE_BATCH_RTOL`` on the whole batch; then one bfloat16 step
+   under DDP and one under FSDP against the unwrapped bfloat16 step
+   (``TRAIN_BF16_RTOL``). With one card it checks the wiring
    (every collective is the identity); the ``[dist]`` lines give each
    rank's warm step, peak memory and, on several cards, NCCL's share of a
    traced step;
@@ -104,7 +120,8 @@ line:
 
 Then the script's seconds, one ``kernels`` JSON line (each kernel's
 ``launches`` counted on phase 6's path, and by path: serve, the int8 + K2
-pipeline, train, the CLI's int8 eval and its reload request, and K2's on
+pipeline, train, train in bf16, the model flags' int8 + K2 legs, the CLI's
+int8 eval and its reload request, and K2's on
 rank 0's time-split and tensor-parallel evals of phase 10), the
 ``nvidia-smi`` line again, and,
 last, the ``ok`` JSON line. There is no CPU path: without a card the script exits 2.
@@ -165,6 +182,10 @@ TRAIN_T, TRAIN_HW = 200, (224, 398)
 TRAIN_STEPS = 6  # train_one_epoch's steps at full width: one cold, five warm
 TRAIN_LOSS_RTOL = 1e-4  # card vs CPU, loss terms and grad norm: float32 sums in another order
 TRAIN_PARAM_ATOL = 2e-5  # card vs CPU after one AdamW step (tests/test_torch_train.py's bound)
+# a bfloat16 step spread over ranks against the unwrapped one, loss terms and grad norm:
+# bfloat16 keeps 8 bits, and the ranks' shares (the one-rank step's microbatches) are
+# summed in another order
+TRAIN_BF16_RTOL = 1e-2
 # the CLI phase: train and val videos of a VidSTG-layout set, each clip's frames, and
 # the train step traced (0 is the cold one)
 CLI_VIDEOS = (4, 2)
@@ -744,11 +765,11 @@ def full_width_cfg(dtype: str, **extra):
 
     # bench.py's headline model: ResNet-101, RoBERTa-base (config defaults),
     # hidden 256, 6+6 layers, 8 heads, FFN 2048
-    return TubeDETRConfig(
-        backbone="resnet101", resolution=352, video_max_len=200,
-        video_max_len_train=200, stride=4, fast=True, sted=True,
-        guided_attn=False, aux_loss=False, dropout=0.0, compute_dtype=dtype, **extra,
-    )
+    return TubeDETRConfig(**{
+        "backbone": "resnet101", "resolution": 352, "video_max_len": 200,
+        "video_max_len_train": 200, "stride": 4, "fast": True, "sted": True,
+        "guided_attn": False, "aux_loss": False, "dropout": 0.0, "compute_dtype": dtype, **extra,
+    })
 
 
 def check_tubes(label, results):
@@ -1144,7 +1165,15 @@ def fan_in_state_dict(model, seed: int):
 
 VARIANTS = {"gating": dict(fast_mode="gating"), "transformer": dict(fast_mode="transformer"),
             "pool": dict(fast_mode="pool"), "noslow": dict(fast_mode="noslow"),
-            "nq3": dict(num_queries=3)}
+            "nq3": dict(num_queries=3),
+            # the model flags and the GroupNorm trunk
+            "learned": dict(position_embedding="learned"), "v2": dict(position_embedding="v2"),
+            "v3": dict(position_embedding="v3"), "no_tsa": dict(no_tsa=True),
+            "learn_time_embed": dict(learn_time_embed=True),
+            "no_time_embed": dict(no_time_embed=True), "gn": dict(backbone="resnet14-gn")}
+# the model flags served at full width, int8_static + K2
+FLAG_SERVING = {"learned+learn_time_embed": dict(position_embedding="learned", learn_time_embed=True),
+                "no_tsa+no_time_embed": dict(no_tsa=True, no_time_embed=True)}
 
 
 def phase_variants(workdir: str):
@@ -1153,8 +1182,16 @@ def phase_variants(workdir: str):
     frames (prepared on the CPU), every output to ``SMALL_ATOL``; for ``num_queries=3`` the two
     selectors' winners equal too. The tubes of card and CPU, scored by
     ``VIoUEvaluator`` against seeded annotations, summarize within 1e-3.
-    Then ``fast_mode="transformer"`` at full width in bf16: one warm B=2
-    ``ground_many``."""
+    The variants include the model flags (``learned``, ``v2``, ``v3``,
+    ``no_tsa``, ``learn_time_embed``, ``no_time_embed``) and the GroupNorm
+    trunk (``resnet14-gn``). Then ``fast_mode="transformer"`` at full width
+    in bf16: one warm B=2 ``ground_many``. Then each of ``FLAG_SERVING`` at
+    full width in int8_static + K2: a cold and a warm B=2 ``ground_many``,
+    K1 once a request and held to its plain version on the request's
+    frames, K2 ``K2_PER_PASS`` times a backbone pass and exact against its
+    plain version on the inputs it got. Then the ``resnet101-gn`` trunk at
+    full width in bf16: one training step of the published config and one
+    B=2 serving call. Returns the launches of K1 and K2 on the flag legs."""
     import numpy as np
     import torch
 
@@ -1255,6 +1292,98 @@ def phase_variants(workdir: str):
             "segments": [r["sted"] for r in results], "max_memory_allocated_gib": peak}
     print(f"[variants] transformer full width bf16: {json.dumps(line)}", flush=True)
     del pipe, pipes, samples, outputs
+    torch.cuda.empty_cache()
+
+    from tubedetr_tpu_torch.ops.fused_bottleneck import fused_bottleneck_block
+    from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize
+
+    flag_launches = {"resize_normalize": 0, "fused_bottleneck": 0}
+    for name, extra in FLAG_SERVING.items():
+        cfg = full_width_cfg("bfloat16", backbone_quant="int8_static", fused_bottleneck=True,
+                             **extra)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resize_normalize.launches = 0
+        fused_bottleneck_block.launches = 0
+        with K1Capture() as k1, K2Capture() as k2:
+            pipe = GroundingPipeline(cfg)
+            _, cold_s = synced(lambda: pipe.ground_many(reqs, render=False))
+            results, warm_s = synced(lambda: pipe.ground_many(reqs, render=False))
+        launches = {"resize_normalize": resize_normalize.launches,
+                    "fused_bottleneck": fused_bottleneck_block.launches}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check_tubes(name, results)
+        if launches["resize_normalize"] != 2 * len(reqs):
+            fail(f"{name}: K1 launched {launches['resize_normalize']} times for "
+                 f"{2 * len(reqs)} requests")
+        if launches["fused_bottleneck"] != 2 * K2_PER_PASS:
+            fail(f"{name}: K2 launched {launches['fused_bottleneck']} times for 2 static "
+                 f"backbone passes ({K2_PER_PASS} each)")
+        for k in flag_launches:
+            flag_launches[k] += launches[k]
+        line = {"cold_ground_many_b2_s": cold_s, "cold_calibration_s": pipe.calibration_s,
+                "warm_ground_many_b2_s": warm_s, "max_memory_allocated_gib": peak,
+                "segments": [r["sted"] for r in results], "launches": launches,
+                "k1_max_abs_err": k1.check(name), "k2_max_abs_err": k2.check()}
+        print(f"[variants] {name} int8_static+fused full width: {json.dumps(line)}", flush=True)
+        del pipe, results
+    torch.cuda.empty_cache()
+    phase_gn_full_width(reqs)
+    return flag_launches
+
+
+def phase_gn_full_width(reqs):
+    """The ``resnet101-gn`` trunk at full width in bf16: one training step of
+    the published config (dropout on, every loss term finite, the stem's
+    and layer1's GroupNorm unchanged, layer2's moved) and one cold B=2
+    serving call (tubes in range)."""
+    import math
+
+    import torch
+
+    from tubedetr_tpu_torch.apps.pipeline import GroundingPipeline
+    from tubedetr_tpu_torch.data.collate import collate_pairs
+    from tubedetr_tpu_torch.data.synthetic import make_synthetic_sample
+    from tubedetr_tpu_torch.models.tubedetr import build_model
+    from tubedetr_tpu_torch.parallel.train_step import create_train_state
+    from tubedetr_tpu_torch.train.optim import base_lrs
+
+    cfg = train_cfg().replace(backbone="resnet101-gn", compute_dtype="bfloat16")
+    h, w = TRAIN_HW
+    sample = make_synthetic_sample(100, t=TRAIN_T, h=h, w=w, vocab=cfg.text_vocab_size, text_len=12)
+    ((batch, _),) = collate_pairs([sample], 1, cfg.video_max_len_train, cfg.stride,
+                                  cfg.max_text_len)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    model.load_state_dict(fan_in_state_dict(model, seed=8))
+    state = create_train_state(cfg, model)
+    norms = ("backbone.0.body.bn1.weight", "backbone.0.body.layer1.0.bn1.weight",
+             "backbone.0.body.layer2.0.bn1.weight")
+    before = {n: model.get_parameter(n).detach().clone() for n in norms}
+    step = timed_step(cfg)
+    state, _ = step(state, batch, base_lrs(cfg), cfg.seed)
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    bad = [k for k, v in step.metrics[0].items() if not math.isfinite(v)]
+    if bad:
+        fail(f"gn train: non-finite {bad}")
+    moved = {n: not torch.equal(before[n], model.get_parameter(n).detach()) for n in norms}
+    if moved[norms[0]] or moved[norms[1]] or not moved[norms[2]]:
+        fail(f"gn train: the GroupNorm parameters that moved are {moved}")
+    line = {"train_cold_step_s": step.split[0]["step_s"], "train_split_s": step.split[0],
+            "train_loss_total": step.metrics[0]["loss_total"],
+            "train_peak_memory_gib": train_peak}
+    del state, model, step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = GroundingPipeline(full_width_cfg("bfloat16", backbone="resnet101-gn"))
+    results, serve_s = synced(lambda: pipe.ground_many(reqs, render=False))
+    check_tubes("gn serve", results)
+    line.update(serve_cold_ground_many_b2_s=serve_s,
+                serve_peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+                segments=[r["sted"] for r in results])
+    print(f"[variants] resnet101-gn bf16 full width: {json.dumps(line)}", flush=True)
+    del pipe
     torch.cuda.empty_cache()
 
 
@@ -1567,7 +1696,195 @@ def phase_train(smi: str):
     print(f"[train-profile] {json.dumps(profile)}", flush=True)
     del state, model, step, off, pairs, samples
     torch.cuda.empty_cache()
+    return launches, line
+
+
+def deterministic_loss(cfg, model, batch) -> dict:
+    """The loss terms of one dropout-free forward of ``model`` on ``batch``,
+    the training passes, no gradient."""
+    import torch
+
+    from tubedetr_tpu_torch.parallel.train_step import TrainState, make_train_step, to_device
+
+    model.eval()
+    with torch.no_grad():
+        total, losses = make_train_step(cfg, deterministic=True).forward_loss(
+            TrainState(model, None, {}), to_device(batch, torch.device("cuda")))
+    out = {k: float(v) for k, v in losses.items()}
+    out["loss_total"] = float(total)
+    return out
+
+
+def phase_train_bf16(smi: str, f32: dict):
+    """``phase_train`` in bfloat16 compute (``compute_dtype="bfloat16"``,
+    float32 parameters and state): ``train_one_epoch`` over the same
+    ``TRAIN_STEPS`` videos from the same fan-in weights. Checks: every loss
+    term finite; the parameters, the last step's gradients (left on the
+    parameters), the AdamW moments and the EMA float32; a forward hook sees bfloat16 out of
+    ``input_proj`` and out of the first decoder layer; the stem, layer1 and
+    every FrozenBN buffer unchanged bit for bit; K1 and K2 never launched.
+    The ``[train-bf16]`` line puts the split, the trunk's passes and the
+    peak beside ``phase_train``'s float32 ones (``f32``), and the step-0
+    dropout-free loss of the two dtypes on the same weights and batch. Then
+    ``phase_remat`` on the trained state. Returns the launches of K1 and
+    K2."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from tubedetr_tpu_torch.data.collate import collate_pairs
+    from tubedetr_tpu_torch.data.synthetic import make_synthetic_sample
+    from tubedetr_tpu_torch.models.layers import computing_in
+    from tubedetr_tpu_torch.models.resnet import FrozenBatchNorm2d
+    from tubedetr_tpu_torch.models.tubedetr import build_model
+    from tubedetr_tpu_torch.ops.fused_bottleneck import fused_bottleneck_block
+    from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize
+    from tubedetr_tpu_torch.parallel.train_step import create_train_state
+    from tubedetr_tpu_torch.train.engine import train_one_epoch
+
+    cfg = train_cfg().replace(compute_dtype="bfloat16").validate_training()
+    h, w = TRAIN_HW
+    phase_t0 = time.perf_counter()
+    samples = [make_synthetic_sample(100 + i, t=TRAIN_T, h=h, w=w, vocab=cfg.text_vocab_size,
+                                     text_len=12) for i in range(TRAIN_STEPS + 1)]
+    pairs = collate_pairs(samples, 1, cfg.video_max_len_train, cfg.stride, cfg.max_text_len)
+    torch.cuda.empty_cache()
+    model = build_model(cfg)
+    model.load_state_dict(fan_in_state_dict(model, seed=8))
+    with computing_in(model, torch.float32):  # the same weights in float32 compute
+        step0 = {"float32": deterministic_loss(cfg, model, pairs[0][0])}
+    step0["bfloat16"] = deterministic_loss(cfg, model, pairs[0][0])
+    torch.cuda.reset_peak_memory_stats()
+    state = create_train_state(cfg, model)
+    before = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    seen = {}
+
+    def record(name):
+        def hook(module, inputs, output):
+            seen.setdefault(name, (output[0] if isinstance(output, tuple) else output).dtype)
+        return hook
+
+    hooks = [model.input_proj.register_forward_hook(record("input_proj")),
+             model.transformer.decoder.layers[0].register_forward_hook(record("decoder.layers.0"))]
+    resize_normalize.launches = 0
+    fused_bottleneck_block.launches = 0
+    step = timed_step(cfg)
+    state, _ = train_one_epoch(cfg, step, state, pairs[:TRAIN_STEPS], 0, cfg.epochs * TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for hk in hooks:
+        hk.remove()
+    launches = {"resize_normalize": resize_normalize.launches,
+                "fused_bottleneck": fused_bottleneck_block.launches}
+
+    # checks
+    for i, m in enumerate(step.metrics):
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad:
+            fail(f"train-bf16: step {i} non-finite {bad}")
+    if any(math.isnan(v) or math.isinf(v) for v in step0["bfloat16"].values()):
+        fail(f"train-bf16: the step-0 losses are not finite: {step0['bfloat16']}")
+    if seen != {"input_proj": torch.bfloat16, "decoder.layers.0": torch.bfloat16}:
+        fail(f"train-bf16: the activations are {seen}, not bfloat16")
+    moments = [v for st in state.optimizer.state.values() for v in st.values()
+               if torch.is_tensor(v) and v.dim() > 0]
+    dtypes = {"params": sorted({str(p.dtype) for p in model.parameters()}),
+              "grads": sorted({str(p.grad.dtype) for p in model.parameters()
+                               if p.grad is not None}),
+              "adamw_moments": sorted({str(v.dtype) for v in moments}),
+              "ema": sorted({str(v.dtype) for v in state.ema_params.values()})}
+    if any(v != ["torch.float32"] for v in dtypes.values()) or not moments:
+        fail(f"train-bf16: the state is not float32: {dtypes}")
+    after = model.state_dict()
+    frozen = [n for n, p in model.named_parameters() if not p.requires_grad]
+    frozen += [f"{m}.{b}" for m, mod in model.named_modules() if isinstance(mod, FrozenBatchNorm2d)
+               for b, _ in mod.named_buffers()]
+    moved = [n for n in frozen if not torch.equal(before[n], after[n])]
+    if moved:
+        fail(f"train-bf16: frozen tensors changed: {moved[:5]}")
+    if launches["resize_normalize"] or launches["fused_bottleneck"]:
+        fail(f"train-bf16: the training path launched K1 or K2: {launches}")
+
+    extra_batch = pairs[TRAIN_STEPS][0]
+    passes = train_trunk_passes(model, extra_batch, cfg)
+    warm = [s["step_s"] for s in step.split[1:]]
+    split = {k: float(np.median([s[k] for s in step.split[1:]]))
+             for k in ("forward_loss_s", "backward_s", "clip_opt_ema_s")}
+    line = {
+        "card": smi, "steps": len(step.split), "cold_step_s": step.split[0]["step_s"],
+        "warm_step_median_s": float(np.median(warm)), "warm_steps_s": warm,
+        "warm_split_median_s": split, "trunk_passes_s": passes,
+        "peak_memory_gib_remat_on": peak,
+        "float32": {k: f32[k] for k in ("warm_step_median_s", "warm_split_median_s",
+                                        "trunk_passes_s", "peak_memory_gib_remat_on")},
+        "step0_dropout_free_loss": step0, "dtypes": dtypes, "activations": str(seen),
+        "grad_norm_pre_clip": [m["grad_norm"] for m in step.metrics],
+        "launches": launches, "phase_s": time.perf_counter() - phase_t0,
+    }
+    print(f"[train-bf16] {json.dumps(line)}", flush=True)
+    del step
+    phase_remat(smi, cfg, state, extra_batch)
+    del state, model, pairs, samples
+    torch.cuda.empty_cache()
     return launches
+
+
+REMAT_POLICIES = ("full", "save_mid", "save_acts", "off")
+
+
+def phase_remat(smi: str, cfg, state, batch):
+    """The remat policies in bfloat16 on the trained full-width state: for
+    each of ``REMAT_POLICIES``, two dropout-free forward + backward passes
+    from the same parameters (the second timed), with
+    ``torch.backends.cudnn.deterministic`` and deterministic kernels on; its
+    seconds and peak memory (and the peak above the memory held before the
+    forward), and its gradients, which must equal the ``full`` policy's bit
+    for bit. The optimizer step is the same under every policy and is left
+    out."""
+    import torch
+
+    from tubedetr_tpu_torch.models.resnet import KEPT_CONVS
+    from tubedetr_tpu_torch.parallel.train_step import make_train_step, to_device
+
+    model = state.model
+    body = model.backbone[0].body
+    batch = to_device(batch, torch.device("cuda"))
+    step = make_train_step(cfg, deterministic=True)
+    model.eval()
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    runs, ref = {}, None
+    try:
+        for policy in REMAT_POLICIES:
+            body.remat = policy != "off"
+            body.kept_convs = KEPT_CONVS.get(policy, ())
+            for _ in range(2):
+                model.zero_grad(set_to_none=True)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                (total, _), fwd_s = synced(lambda: step.forward_loss(state, batch))
+                _, bwd_s = synced(lambda: total.backward())
+                del total
+            peak = torch.cuda.max_memory_allocated()
+            grads = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+            if ref is None:
+                ref = {n: g.clone() for n, g in grads.items()}
+            differ = [n for n, g in grads.items() if not torch.equal(g, ref[n])]
+            runs[policy] = {"forward_s": fwd_s, "backward_s": bwd_s,
+                            "forward_backward_s": fwd_s + bwd_s, "peak_memory_gib": peak / 2**30,
+                            "peak_above_held_gib": (peak - held) / 2**30,
+                            "grads_differing_from_full": len(differ)}
+            if set(grads) != set(ref) or differ:
+                fail(f"remat: the {policy} policy's gradients differ from full's: {differ[:5]}")
+    finally:
+        torch.backends.cudnn.deterministic = saved
+        torch.use_deterministic_algorithms(False)
+        body.remat, body.kept_convs = cfg.remat_backbone, KEPT_CONVS[cfg.remat_policy]
+        model.zero_grad(set_to_none=True)
+    print(f"[remat] {json.dumps({'card': smi, 'compute_dtype': cfg.compute_dtype, 'runs': runs})}",
+          flush=True)
 
 def cli_args(data: str, out: str, *extra) -> list:
     """The train CLI's argv over a VidSTG-layout directory, EMA on."""
@@ -1621,6 +1938,48 @@ class K2Capture:
                      f"version, max |err| {err}")
         self.seen.clear()
         return out
+
+
+class K1Capture:
+    """Inside, the pipeline's K1 calls go through a wrapper that keeps the
+    first call's arguments (the wrapped function still counts each launch);
+    ``check`` then holds K1 to its plain version on those real frames, with
+    ``phase_k1``'s tolerance, launches that come after the counts are read."""
+
+    def __enter__(self):
+        from tubedetr_tpu_torch.apps import pipeline
+
+        self.module, self.orig, self.seen = pipeline, pipeline.resize_normalize, None
+
+        def capture(frames, out_h, out_w, **kw):
+            if self.seen is None:
+                self.seen = (frames.clone(), out_h, out_w, kw)
+            return self.orig(frames, out_h, out_w, **kw)
+
+        pipeline.resize_normalize = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.module.resize_normalize = self.orig
+        return False
+
+    def check(self, label: str) -> float:
+        import torch
+
+        from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize_plain
+
+        frames, oh, ow, kw = self.seen
+        out = self.orig(frames, oh, ow, **kw)
+        ref32 = resize_normalize_plain(frames, oh, ow, kw.get("crop"), torch.float32,
+                                       kw.get("pad_to"))
+        err = (out.float() - ref32).abs()
+        tol = (bf16_ulp(ref32) + F32_ATOL if out.dtype == torch.bfloat16
+               else torch.full_like(ref32, F32_ATOL))
+        if not bool((err <= tol).all()):
+            fail(f"{label}: K1 on the request's frames differs from its plain version by "
+                 f"{err.max().item()}")
+        self.seen = None
+        return err.max().item()
 
 
 def upload_seconds(cfg, sample, tokenizer) -> dict:
@@ -2133,12 +2492,14 @@ def dist_rank(rank: int, world: int) -> dict:
     TP + FSDP on a one-rank model group; on 4 data=2 x model=2 under
     TP + FSDP and TP + ZeRO-1, and model=4), each run with one more step's
     collective inventory; then the time-split int8 + K2 eval and the
-    tensor-parallel one; then the pipelined stacks (``dist_pp``). On one
+    tensor-parallel one; then the pipelined stacks (``dist_pp``); and one
+    bfloat16 step unwrapped (rank 0), under DDP and under FSDP. On one
     card no step is traced: its collectives launch no NCCL kernel."""
     import torch
 
     from tubedetr_tpu_torch.data.collate import collate
     from tubedetr_tpu_torch.data.synthetic import make_synthetic_sample
+    from tubedetr_tpu_torch.models.layers import computing_in
     from tubedetr_tpu_torch.models.tubedetr import build_model
     from tubedetr_tpu_torch.parallel.mesh import make_mesh
 
@@ -2182,6 +2543,21 @@ def dist_rank(rank: int, world: int) -> dict:
         out["runs"][name] = dict(dist_train_run(run_cfg, template, batch(run_cfg, part), mesh,
                                                 steps, traced, tp=tp, inventory=True),
                                  mesh=[data, time_, model_], tp=bool(tp or model_ > 1))
+    # bfloat16 compute (the template's copies compute in bf16): the unwrapped
+    # step (rank 0), then DDP and FSDP, one step each
+    bf16 = cfg.replace(compute_dtype="bfloat16")
+    out["runs_bf16"] = {}
+    with computing_in(template, torch.bfloat16):
+        if rank == 0:
+            ref_cfg = bf16.replace(batch_size=world, grad_accum=world)
+            out["ref_bf16"] = dist_train_run(ref_cfg, template, batch(ref_cfg, samples), None, 1,
+                                             traced=False)
+        for name, extra in (("ddp bf16", {}), ("fsdp bf16", {"shard_params": True})):
+            mesh = make_mesh(world, 1, "cuda")
+            run_cfg = bf16.replace(batch_size=1, **extra)
+            part = samples[mesh.data_rank:mesh.data_rank + 1]
+            out["runs_bf16"][name] = dist_train_run(run_cfg, template, batch(run_cfg, part),
+                                                    mesh, 1, traced=False)
     del template
     out["int8"] = dist_int8_eval(cfg, weights, samples[0], make_mesh(1, world, "cuda"))
     out["int8_tp"] = dist_int8_eval(cfg, weights, samples[0], make_mesh(1, 1, "cuda", world),
@@ -2304,6 +2680,23 @@ def phase_dist(smi: str):
             fail(f"dist: {name} differs from the one-rank run by {max(errs)} (relative) in its "
                  f"losses or grad norm")
     print(f"[dist] {json.dumps({'card': smi, 'cards': world, 'run': 'one-rank reference', 'warm_step_median_s': ref['warm_step_median_s'], 'peak_memory_gib': ref['peak_memory_gib'], 'grad_norm_step0': ref['metrics'][0]['grad_norm'], 'loss_total_step0': ref['metrics'][0]['loss_total']})}", flush=True)
+    ref16 = got[0]["ref_bf16"]
+    for name in got[0]["runs_bf16"]:
+        errs = []
+        for r in range(world):
+            run = got[r]["runs_bf16"][name]
+            err = max(abs(run["metrics"][0][k] - ref16["metrics"][0][k])
+                      / max(abs(ref16["metrics"][0][k]), 1e-12) for k in ref16["metrics"][0])
+            errs.append(err)
+            line = {"card": smi, "cards": world, "run": name, "rank": r,
+                    "cold_step_s": run["step_s"][0], "peak_memory_gib": run["peak_memory_gib"],
+                    "loss_total_step0": run["metrics"][0]["loss_total"],
+                    "grad_norm_step0": run["metrics"][0]["grad_norm"],
+                    "one_rank_bf16_loss_total_step0": ref16["metrics"][0]["loss_total"],
+                    "max_rel_err_vs_one_rank_bf16": err}
+            print(f"[dist] {json.dumps(line)}", flush=True)
+        if not max(errs) <= TRAIN_BF16_RTOL:
+            fail(f"dist: {name} differs from the one-rank bf16 step by {max(errs)} (relative)")
     for r in range(world):
         for key, tag in (("int8", "dist-int8"), ("int8_tp", "dist-tp")):
             q = got[r][key]
@@ -2373,12 +2766,13 @@ def main() -> int:
         phase_small_agreement(workdir)
         phase_small_int8_agreement(workdir)
         launches = phase_serve(workdir)
-        phase_variants(workdir)
+        flag_launches = phase_variants(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
     phase_train_small()
-    train_launches = phase_train(smi)
+    train_launches, train_line = phase_train(smi)
+    train_bf16_launches = phase_train_bf16(smi, train_line)
     cli_launches = phase_cli(smi)
     phase_cli_small()
     dist_launches, dist_tp_launches = phase_dist(smi)
@@ -2390,6 +2784,8 @@ def main() -> int:
         entry["launches_by_path"] = {"serve": launches[key],
                                      "int8_static+fused pipeline": pipeline_launches[key],
                                      "train": train_launches[key],
+                                     "train bf16": train_bf16_launches[key],
+                                     "model flags int8_static+fused": flag_launches[key],
                                      "cli int8 eval": cli_launches["int8_eval"][key],
                                      "cli reload request": cli_launches["reload_request"][key]}
     k2["launches_by_path"]["dist int8 eval (rank 0)"] = dist_launches

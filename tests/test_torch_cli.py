@@ -42,6 +42,7 @@ import torch
 
 import jax
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 - autouse
 from tubedetr_tpu.apps import train as jax_train
 from tubedetr_tpu.config import TubeDETRConfig as JaxConfig
 from tubedetr_tpu.models.tubedetr import build_model as jax_build_model

@@ -16,6 +16,7 @@ import torch
 
 import jax.numpy as jnp
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 - autouse
 from tubedetr_tpu.core import boxes as jax_boxes
 from tubedetr_tpu.core import embeddings as jax_emb
 from tubedetr_tpu.core import masking as jax_masking

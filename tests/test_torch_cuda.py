@@ -508,6 +508,95 @@ def test_train_step_on_the_card_matches_the_cpu():
         np.testing.assert_allclose(e_card[n].numpy(), e_cpu[n].numpy(), atol=1e-6, rtol=0, err_msg=n)
 
 
+def _tiny_bf16_step(dev, weights, batch, **extra):
+    """(metrics, {name: grad}, state) of one dropout-free bfloat16 step of
+    the tiny model on ``dev``."""
+    from tubedetr_tpu_torch.config import TubeDETRConfig
+    from tubedetr_tpu_torch.models.tubedetr import build_model
+    from tubedetr_tpu_torch.parallel.train_step import create_train_state, make_train_step, to_device
+
+    cfg = TubeDETRConfig(
+        backbone="resnet26", hidden_dim=32, nheads=4, enc_layers=1, dec_layers=2,
+        dim_feedforward=64, video_max_len=8, video_max_len_train=8, stride=2,
+        max_text_len=8, text_vocab_size=128, text_hidden_size=32, text_layers=1,
+        text_heads=4, text_ffn=64, text_max_positions=40, batch_size=2, ema=True,
+        ema_decay=0.9, compute_dtype="bfloat16", **extra)
+    model = build_model(cfg, device=dev)
+    if weights is not None:
+        model.load_state_dict(weights)
+    state = create_train_state(cfg, model)
+    step = make_train_step(cfg, deterministic=True)
+    total, _ = step.forward_loss(state, to_device(batch, torch.device(dev)))
+    total.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+    state.optimizer.zero_grad(set_to_none=True)
+    lrs = {"lr": 1e-3, "lr_backbone": 1e-4, "lr_text_encoder": 1e-3}
+    state, metrics = step(state, batch, lrs, 0)
+    return {k: float(v) for k, v in metrics.items()}, grads, state
+
+
+def _tiny_batch():
+    from tubedetr_tpu_torch.data.collate import collate
+    from tubedetr_tpu_torch.data.synthetic import make_synthetic_sample
+
+    samples = [make_synthetic_sample(i, t=8 - i, vocab=128) for i in range(2)]
+    return collate(samples, 8, 2, 8)
+
+
+def test_bf16_train_step_on_the_card_keeps_float32_state():
+    """One bfloat16 step of a tiny model on the card: every loss term
+    finite and within 5e-2 (relative) of the CPU's bfloat16 step from the
+    same weights (cuDNN and oneDNN sum in other orders, and bfloat16 keeps
+    8 bits); parameters, gradients, AdamW moments and the EMA float32."""
+    require_cuda()
+    batch = _tiny_batch()
+    torch.manual_seed(0)
+    m_cpu, _, state_cpu = _tiny_bf16_step("cpu", None, batch)
+    torch.manual_seed(0)  # the same init on the card
+    m_card, grads, state = _tiny_bf16_step("cuda", None, batch)
+    assert set(m_card) == set(m_cpu)
+    for k in m_cpu:
+        assert np.isfinite(m_card[k]), k
+        np.testing.assert_allclose(m_card[k], m_cpu[k], rtol=5e-2, err_msg=k)
+    assert all(p.dtype == torch.float32 for p in state.model.parameters())
+    assert all(g.dtype == torch.float32 for g in grads.values())
+    assert all(v.dtype == torch.float32 for st in state.optimizer.state.values()
+               for v in st.values() if torch.is_tensor(v) and v.dim() > 0)
+    assert all(v.dtype == torch.float32 for v in state.ema_params.values())
+
+
+def test_remat_policies_give_equal_gradients_on_the_card():
+    """``full``, ``save_mid``, ``save_acts`` and remat off: bit-equal
+    bfloat16 gradients on the card with deterministic cuDNN and kernels."""
+    require_cuda()
+    batch = _tiny_batch()
+    torch.manual_seed(0)
+    from tubedetr_tpu_torch.config import TubeDETRConfig
+    from tubedetr_tpu_torch.models.tubedetr import build_model
+
+    weights = build_model(TubeDETRConfig(backbone="resnet26", hidden_dim=32, nheads=4,
+                                         enc_layers=1, dec_layers=2, dim_feedforward=64,
+                                         video_max_len=8, video_max_len_train=8, stride=2,
+                                         max_text_len=8, text_vocab_size=128,
+                                         text_hidden_size=32, text_layers=1, text_heads=4,
+                                         text_ffn=64, text_max_positions=40),
+                          device="cpu").state_dict()
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = {p: _tiny_bf16_step("cuda", weights, batch, remat_policy=p)[1]
+                for p in ("full", "save_mid", "save_acts")}
+        runs["off"] = _tiny_bf16_step("cuda", weights, batch, remat_backbone=False)[1]
+    finally:
+        torch.backends.cudnn.deterministic = saved
+        torch.use_deterministic_algorithms(False)
+    for name, grads in runs.items():
+        assert sorted(grads) == sorted(runs["full"]), name
+        for n, g in grads.items():
+            assert torch.equal(g, runs["full"][n]), (name, n)
+
+
 # the train CLI's layer maps at resolution 224 for 360x640 clips: the eval
 # transform gives 210x373 frames; serving pads them to 224x384 (K1's bucket),
 # the data path does not (as the JAX package's collate)

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 - autouse
 from tubedetr_tpu.config import TubeDETRConfig as JaxConfig
 from tubedetr_tpu.data import collate as jax_collate
 from tubedetr_tpu.data import datasets as jax_datasets

@@ -16,6 +16,7 @@ import torch
 
 import jax.numpy as jnp
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 - autouse
 from tubedetr_tpu.core import boxes as jboxes
 from tubedetr_tpu.data import annotations as jann
 from tubedetr_tpu.data.collate import VideoSample as JaxSample

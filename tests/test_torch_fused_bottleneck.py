@@ -17,6 +17,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 - autouse
 from tubedetr_tpu.ops.fused_bottleneck import (
     fused_bottleneck_block as jax_fused_block,
     fused_bottleneck_reference,

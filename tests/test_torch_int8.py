@@ -37,6 +37,7 @@ import jax
 import jax.numpy as jnp
 
 from tests.test_torch_model import make_batch, random_variables
+from tests.torch_threads import one_torch_thread  # noqa: F401 - autouse
 from tubedetr_tpu.config import TubeDETRConfig as JaxConfig
 from tubedetr_tpu.models import quantize as jq
 from tubedetr_tpu.models.resnet import Bottleneck as JaxBottleneck

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 - autouse
 from tubedetr_tpu.config import TubeDETRConfig as JaxConfig
 from tubedetr_tpu.losses import criterion as jax_criterion
 from tubedetr_tpu.losses import matcher as jax_matcher

@@ -15,6 +15,7 @@ import torch
 
 import jax
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 - autouse
 from tubedetr_tpu.config import TubeDETRConfig as JaxConfig
 from tubedetr_tpu.models.tubedetr import build_model as jax_build_model
 from tubedetr_tpu_torch.config import TubeDETRConfig
@@ -178,11 +179,25 @@ def test_load_reference_pth_prefers_ema_and_truncates_queries(tmp_path):
 
 def test_config_rejects_what_the_port_does_not_run():
     for kw in (dict(backbone_quant="int8_qat"), dict(backbone_quant_fast="int8_static"),
-               dict(backbone_quant_frozen="int8_static"), dict(backbone="resnet101-gn"),
-               dict(backbone="timm_efficientnet_b3"), dict(position_embedding="learned"),
-               dict(no_tsa=True), dict(learn_time_embed=True), dict(no_time_embed=True)):
+               dict(backbone_quant_frozen="int8_static"), dict(log_quant_drift=True),
+               dict(recalibrate_each_epoch=True), dict(backbone="timm_efficientnet_b3"),
+               dict(backbone="resnet101-gn", backbone_quant="int8_static")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TubeDETRConfig(**kw).validate()
-    # the fast_mode variants and num_queries > 1 run
-    for kw in (dict(fast_mode="gating"), dict(fast_mode="noslow"), dict(num_queries=2)):
+    # the JAX package's own refusals
+    with pytest.raises(ValueError, match="no_tsa"):
+        TubeDETRConfig(num_queries=2, no_tsa=True).validate()
+    with pytest.raises(ValueError, match="remat_policy"):
+        TubeDETRConfig(remat_policy="save_all").validate()
+    # the fast_mode variants, num_queries > 1, the model flags, the GroupNorm
+    # trunks, the remat policies and bfloat16 training run
+    for kw in (dict(fast_mode="gating"), dict(fast_mode="noslow"), dict(num_queries=2),
+               dict(position_embedding="learned"), dict(position_embedding="v2"),
+               dict(position_embedding="v3"), dict(no_tsa=True), dict(learn_time_embed=True),
+               dict(no_time_embed=True), dict(remat_policy="save_mid"),
+               dict(remat_policy="save_acts"), dict(remat_policy="")):
         TubeDETRConfig(**kw).validate()
+    for arch in ("resnet50-gn", "resnet101-gn", "resnet152-gn"):
+        for dtype in ("float32", "bfloat16"):
+            TubeDETRConfig(backbone=arch, compute_dtype=dtype).validate_training()
+    TubeDETRConfig(compute_dtype="bfloat16").validate_training()

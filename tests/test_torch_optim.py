@@ -22,6 +22,7 @@ from torch import nn
 
 from tests.test_torch_model import TINY, random_variables
 from tests.test_torch_train import jax_batch
+from tests.torch_threads import one_torch_thread  # noqa: F401 - autouse
 from tubedetr_tpu.config import TubeDETRConfig as JaxConfig
 from tubedetr_tpu.models.tubedetr import build_model as jax_build_model
 from tubedetr_tpu.parallel.train_step import model_inputs as jax_model_inputs

@@ -14,6 +14,7 @@ import torch
 import jax
 
 from tests.test_torch_model import random_variables
+from tests.torch_threads import one_torch_thread  # noqa: F401 - autouse
 from tubedetr_tpu.apps.pipeline import GroundingPipeline as JaxPipeline
 from tubedetr_tpu.config import TubeDETRConfig as JaxConfig
 from tubedetr_tpu_torch.apps.pipeline import GroundingPipeline

@@ -19,6 +19,7 @@ import torch
 
 import jax.numpy as jnp
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 - autouse
 from tubedetr_tpu.ops.pallas_preprocess import resize_normalize_fused, resize_normalize_pallas
 from tubedetr_tpu.ops.preprocess import _interp_matrix as jax_interp_matrix
 from tubedetr_tpu.ops.preprocess import resize_normalize as jax_resize_normalize

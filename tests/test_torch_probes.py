@@ -34,6 +34,7 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 - autouse
 from tubedetr_tpu_torch.ops import _cuda_build
 from tubedetr_tpu_torch.ops.fused_bottleneck import TilePlan
 from tubedetr_tpu_torch.ops.probe_bottleneck import (

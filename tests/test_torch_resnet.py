@@ -14,6 +14,7 @@ import torch
 import jax
 
 from tests.test_torch_model import random_variables
+from tests.torch_threads import one_torch_thread  # noqa: F401 - autouse
 from tubedetr_tpu.models.resnet import ResNet as JaxResNet
 from tubedetr_tpu_torch.interop.from_jax import resnet_from_jax
 from tubedetr_tpu_torch.models.resnet import FrozenBatchNorm2d, ResNet

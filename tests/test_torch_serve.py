@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 - autouse
 from tubedetr_tpu_torch.apps.serve import Server, make_handler
 from tubedetr_tpu_torch.config import TubeDETRConfig
 

@@ -12,6 +12,7 @@ import torch
 import jax
 
 from tests.test_torch_model import random_variables
+from tests.torch_threads import one_torch_thread  # noqa: F401 - autouse
 from tubedetr_tpu.models.layers import MultiHeadAttention as JaxMHA
 from tubedetr_tpu.models.roberta import RobertaConfig as JaxRobertaConfig
 from tubedetr_tpu.models.roberta import RobertaModel as JaxRoberta

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from tests.test_torch_model import ATOL, T, TINY, jax_forward, make_batch, port_forward, port_model
+from tests.torch_threads import one_torch_thread  # noqa: F401 - autouse
 from tubedetr_tpu.config import TubeDETRConfig as JaxConfig
 from tubedetr_tpu_torch.config import TubeDETRConfig
 from tubedetr_tpu_torch.interop.from_jax import params_from_jax

@@ -73,7 +73,7 @@ class GroundingPipeline:
         )
         self.model = build_model(cfg, self.device)
         self.model.load_state_dict(fabricate_state_dict(self.model, seed))
-        self.model.cast_compute(self.dtype)
+        self.model.cast_compute()
         self.tokenizer = build_tokenizer(cfg.tokenizer_path, cfg.text_vocab_size)
         # the port's seeded weights are not the JAX package's: their own tag
         self._weights_tag = f"fabricate-torch-seed{seed}"

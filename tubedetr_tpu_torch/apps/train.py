@@ -192,7 +192,7 @@ def _run(cfg, stats: Optional[RunStats], distributed: bool) -> int:
     from tubedetr_tpu_torch.eval.viou import VIoUEvaluator
     from tubedetr_tpu_torch.models.quantize import get_or_calibrate_qscales, weights_tag_for
     from tubedetr_tpu_torch.models.tokenizer import build_tokenizer
-    from tubedetr_tpu_torch.models.tubedetr import COMPUTE_DTYPES, build_model
+    from tubedetr_tpu_torch.models.tubedetr import build_model
     from tubedetr_tpu_torch.parallel import dist as tdist
     from tubedetr_tpu_torch.parallel.mesh import gather_state, make_mesh, mesh_shape
     from tubedetr_tpu_torch.parallel.train_step import (
@@ -246,7 +246,7 @@ def _run(cfg, stats: Optional[RunStats], distributed: bool) -> int:
             print(f"[load] {len(missing)} tensors kept at init (e.g. {missing[:5]})")
     if cfg.evaluate_only:
         # evaluation runs in the compute dtype and steps nothing
-        model.cast_compute(COMPUTE_DTYPES[cfg.compute_dtype])
+        model.cast_compute()
         ema = {n: p.detach().clone() for n, p in model.named_parameters()} if cfg.ema else None
         state = TrainState(model, None, {}, ema)
     else:

@@ -11,10 +11,17 @@ yet, naming the ROADMAP item that will bring each, so none passes unread
 a world size that ``mesh_time * mesh_model`` does not divide is refused by
 ``parallel/mesh.py:mesh_shape``). The
 int8 backbone modes ``int8`` and ``int8_static`` (with or without ``fused_bottleneck``) run on
-the frozen-BN ResNets; every ``fast_mode`` and ``num_queries > 1`` run,
-and ``validate()`` accepts and refuses those fields as the JAX package's
-does, the training fields (schedule, optimizer, ``grad_accum``) included.
-``validate_training`` adds what the JAX package refuses for training.
+the frozen-BN ResNets; every ``fast_mode``, ``num_queries > 1``, both
+compute dtypes (training included), the sine (``sine``, ``v2``) and learned
+(``learned``, ``v3``) position embeddings, ``no_tsa``, ``learn_time_embed``,
+``no_time_embed``, the GroupNorm trunks (``resnet*-gn``) and every
+``remat_policy`` run, and ``validate()`` accepts and refuses those fields
+as the JAX package's does, the training fields (schedule, optimizer,
+``grad_accum``) included. Still refused: ``int8_qat``, the quantized
+training passes and their drift and recalibration flags, a GroupNorm trunk
+under an int8 ``backbone_quant`` (ROADMAP item 16d), and the timm families
+(item 16f). ``validate_training`` adds what the JAX package refuses for
+training.
 ``apply_json_overlay`` is the CLI's ``--dataset_config``.
 """
 
@@ -236,7 +243,8 @@ class TubeDETRConfig:
                 f"backbone_quant={self.backbone_quant!r}, backbone_quant_fast="
                 f"{self.backbone_quant_fast!r}, backbone_quant_frozen="
                 f"{self.backbone_quant_frozen!r}: int8_qat and the quantized "
-                "training passes come with ROADMAP queue 1 'Secondary features'"
+                "training passes come with ROADMAP queue 1 'Secondary features', item "
+                "16d (the quantized training passes)"
             )
         if self.mesh_data < 1 and self.mesh_data != -1:
             raise ValueError(f"mesh_data must be >= 1 (or -1: every rank), got {self.mesh_data}")
@@ -247,50 +255,44 @@ class TubeDETRConfig:
         if self.log_quant_drift or self.recalibrate_each_epoch:
             raise NotImplementedError(
                 "--log_quant_drift and --recalibrate_each_epoch act on the quantized "
-                "training passes, which come with ROADMAP queue 1 'Secondary features'"
+                "training passes, which come with ROADMAP queue 1 'Secondary "
+                "features', item 16d (the quantized training passes)"
             )
-        if self.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={self.remat_policy!r}: the policies that save "
-                "part of a block come with ROADMAP queue 1 'Secondary features'"
+        if self.position_embedding not in ("sine", "learned", "v2", "v3"):
+            raise ValueError(f"unknown position_embedding {self.position_embedding!r}")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"unknown remat_policy {self.remat_policy!r}; expected one of {REMAT_POLICIES}"
             )
-        if self.backbone.startswith("timm_") or self.backbone.endswith("-gn"):
+        if self.backbone.startswith("timm_"):
             raise NotImplementedError(
-                f"backbone {self.backbone!r}: the timm and GroupNorm "
-                "backbones come with ROADMAP queue 1 'Secondary features'"
+                f"backbone {self.backbone!r}: the timm families come with ROADMAP "
+                "queue 1 'Secondary features', item 16f (the timm families)"
             )
-        if (
-            self.position_embedding != "sine"
-            or self.no_tsa
-            or self.learn_time_embed
-            or self.no_time_embed
-        ):
+        if self.backbone.endswith("-gn") and self.backbone_quant != "none":
             raise NotImplementedError(
-                "learned position embeddings, --no_tsa, --learn_time_embed "
-                "and --no_time_embed come with ROADMAP queue 1 'Secondary "
-                "features'"
+                f"backbone {self.backbone!r} with backbone_quant={self.backbone_quant!r}: "
+                "the int8 GroupNorm trunk comes with ROADMAP queue 1 'Secondary "
+                "features', item 16d (the quantized training passes)"
             )
         return self
 
     def validate_training(self) -> "TubeDETRConfig":
         """``validate()`` plus what training refuses: the post-training int8
         modes (no gradient passes ``round()``), as the JAX package's
-        ``apps/train.py`` refuses them, and bfloat16 compute."""
+        ``apps/train.py`` refuses them. Both compute dtypes train, with
+        float32 parameters and optimizer state."""
         self.validate()
         if self.backbone_quant in ("int8", "int8_static"):
             raise NotImplementedError(
                 f"backbone_quant={self.backbone_quant!r} trains nothing (zero "
                 "gradients through round()); use it for evaluation and serving"
             )
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                "training in bfloat16 compute comes with ROADMAP queue 1 "
-                "'Secondary features'; train in float32"
-            )
         return self
 
 
 SCHEDULES = ("step", "multistep", "linear_with_warmup", "all_linear_with_warmup")
+REMAT_POLICIES = ("", "full", "save_mid", "save_acts")
 
 
 def loss_weight_dict(cfg: TubeDETRConfig) -> dict:

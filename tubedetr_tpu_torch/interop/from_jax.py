@@ -11,7 +11,14 @@ names are the reference checkpoint's. Layout rules:
 * Dense kernel ``(in, out)``           -> ``Linear.weight`` ``(out, in)``
 * attention ``q_proj``/``k_proj``/``v_proj`` -> packed ``in_proj_weight``/``in_proj_bias``
 * the ``input_proj`` Dense ``(2048, D)`` -> a 1x1 ``Conv2d`` ``(D, 2048, 1, 1)``
-* FrozenBatchNorm statistics come from the ``buffers`` collection
+* FrozenBatchNorm statistics come from the ``buffers`` collection; the
+  GroupNorm of a ``-gn`` trunk is a parameter (``scale``/``bias`` ->
+  ``weight``/``bias``), as the JAX package's ``convert_resnet`` reads it
+* the learned position grid (``row_embed``, ``col_embed``, top-level JAX
+  parameters) -> ``row_embed.weight``, ``col_embed.weight``; the learned
+  time embedding (``transformer/time_embed``) ->
+  ``transformer.time_embed.time_embed.weight``; the no-TSA decoder has the
+  TSA decoder's leaves
 * ResNet stage tails in either layout: scanned (``layer{i}_rest/block``,
   stacked on axis 0) or unrolled (``layer{i}_{j}``)
 * the fast branch as a linear layer (``""``, gating, pool, noslow) or as
@@ -75,14 +82,21 @@ def _mlp(tree: Tree, name: str) -> Dict[str, np.ndarray]:
     return out
 
 
+def _norm(p: Tree, b: Tree, key: str, name: str) -> Dict[str, np.ndarray]:
+    """A GroupNorm (parameters) or a FrozenBN (buffers) under ``key``."""
+    if key in p:
+        return _layernorm(p[key], name)
+    return _frozen_bn(b[key], name)
+
+
 def _bottleneck(p: Tree, b: Tree, name: str) -> Dict[str, np.ndarray]:
     out = {}
     for i in (1, 2, 3):
         out.update(_conv(p[f"conv{i}"], f"{name}.conv{i}"))
-        out.update(_frozen_bn(b[f"bn{i}"], f"{name}.bn{i}"))
+        out.update(_norm(p, b, f"bn{i}", f"{name}.bn{i}"))
     if "downsample_conv" in p:
         out.update(_conv(p["downsample_conv"], f"{name}.downsample.0"))
-        out.update(_frozen_bn(b["downsample_bn"], f"{name}.downsample.1"))
+        out.update(_norm(p, b, "downsample_bn", f"{name}.downsample.1"))
     return out
 
 
@@ -97,15 +111,16 @@ def _tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 
 def resnet_from_jax(params: Tree, buffers: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """JAX ``ResNet`` params + FrozenBN buffers -> ``ResNet`` state_dict."""
-    out = {**_conv(params["conv1"], f"{prefix}conv1"), **_frozen_bn(buffers["bn1"], f"{prefix}bn1")}
+    """JAX ``ResNet`` params + FrozenBN buffers (none for a GroupNorm
+    trunk) -> ``ResNet`` state_dict."""
+    out = {**_conv(params["conv1"], f"{prefix}conv1"), **_norm(params, buffers, "bn1", f"{prefix}bn1")}
     for key in params:
         m = re.fullmatch(r"layer(\d+)_(\d+|rest)", key)
         if not m:
             continue
         li = m.group(1)
         if m.group(2) == "rest":  # scanned tails: blocks 1.. stacked on axis 0
-            p, b = params[key]["block"], buffers[key]["block"]
+            p, b = params[key]["block"], buffers.get(key, {}).get("block", {})
             n = np.asarray(p["conv1"]["kernel"]).shape[0]
             for j in range(n):
                 out.update(_bottleneck(
@@ -113,7 +128,7 @@ def resnet_from_jax(params: Tree, buffers: Tree, prefix: str = "") -> Dict[str, 
                 ))
         else:
             out.update(_bottleneck(
-                params[key], buffers[key], f"{prefix}layer{li}.{m.group(2)}"
+                params[key], buffers.get(key, {}), f"{prefix}layer{li}.{m.group(2)}"
             ))
     return _tensors(out)
 
@@ -184,6 +199,8 @@ def transformer_from_jax(tr: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
         sd.update(_linear(fast, f"{prefix}fast_encoder"))
     if "fast_residual" in tr:
         sd.update(_linear(tr["fast_residual"], f"{prefix}fast_residual"))
+    if "time_embed" in tr:  # learn_time_embed
+        sd[f"{prefix}time_embed.time_embed.weight"] = _np(tr["time_embed"])
     return _tensors(sd)
 
 
@@ -198,6 +215,9 @@ def _expected_layout(cfg) -> dict:
         ("layer" if fast_mode == "transformer" else "linear"),
         "fast_residual": fast_mode in ("", "transformer", "pool"),
         "objectness_embed": cfg.num_queries > 1,
+        "learned positions": cfg.position_embedding in ("learned", "v3"),
+        "learned time embedding": cfg.learn_time_embed and not cfg.no_time_embed,
+        "GroupNorm trunk": cfg.backbone.endswith("-gn"),
     }
 
 
@@ -214,6 +234,10 @@ def _layout(sd: Dict) -> dict:
         "fast_encoder": fast,
         "fast_residual": "transformer.fast_residual.weight" in sd,
         "objectness_embed": "objectness_embed.layers.0.weight" in sd,
+        "learned positions": "row_embed.weight" in sd,
+        "learned time embedding": "transformer.time_embed.time_embed.weight" in sd,
+        "GroupNorm trunk": "backbone.0.body.bn1.weight" in sd
+        and "backbone.0.body.bn1.running_mean" not in sd,
     }
 
 
@@ -222,7 +246,8 @@ def params_from_jax(variables: Tree, cfg) -> Dict[str, torch.Tensor]:
     ``state_dict`` (float32 CPU tensors) for ``TubeDETR(cfg)``. Raises when
     the variables' layers or fast branch are not the ones ``cfg`` builds."""
     p = variables["params"]
-    sd = resnet_from_jax(p["backbone"], variables["buffers"]["backbone"], "backbone.0.body.")
+    sd = resnet_from_jax(p["backbone"], variables.get("buffers", {}).get("backbone", {}),
+                         "backbone.0.body.")
     sd.update(roberta_from_jax(p["text_encoder"], "transformer.text_encoder."))
     sd.update(transformer_from_jax(p["transformer"], "transformer."))
     heads = {
@@ -235,6 +260,9 @@ def params_from_jax(variables: Tree, cfg) -> Dict[str, torch.Tensor]:
         heads.update(_mlp(p["sted_embed"], "sted_embed"))
     if "objectness_embed" in p:
         heads.update(_mlp(p["objectness_embed"], "objectness_embed"))
+    for grid in ("row_embed", "col_embed"):
+        if grid in p:
+            heads[f"{grid}.weight"] = _np(p[grid])
     sd.update(_tensors(heads))
     have, want = _layout(sd), _expected_layout(cfg)
     if have != want:

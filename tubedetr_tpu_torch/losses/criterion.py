@@ -68,7 +68,9 @@ def loss_guided_attn(weights, positive_map, time_mask) -> Losses:
     such frames."""
     eps = 1e-6
     pos_or_pad = positive_map | ~time_mask
-    loss = -torch.log(1.0 - weights + eps)
+    # (1 + eps) - w: XLA folds the JAX package's (1 - w) + eps so, which
+    # shows where w is 1 (the one key of --no_tsa): float32 1 + eps is 1 + 2^-20
+    loss = -torch.log((1.0 + eps) - weights)
     loss = torch.where(pos_or_pad[:, :, None], torch.zeros_like(loss), loss)
     nb_neg = (~pos_or_pad).sum(1).to(loss.dtype) + eps
     return {"loss_guided_attn": (loss.sum(2) / nb_neg[:, None]).sum(1).mean()}

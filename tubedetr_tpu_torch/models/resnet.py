@@ -1,11 +1,16 @@
-"""ResNet trunk with frozen batch norm (counterpart of ``tubedetr_tpu/models/resnet.py``).
+"""ResNet trunk with frozen batch norm or GroupNorm (counterpart of ``tubedetr_tpu/models/resnet.py``).
 
 Module names follow torchvision, so the reference ``backbone.0.body.*``
 weights load as they are. The public input/output is NHWC as in the JAX
-package.
+package. ``resnet*-gn`` puts ``GroupNorm(32, eps=1e-5)`` where the others
+have FrozenBN: its weight and bias are parameters, frozen with the stem and
+layer1 and trained with layer2-4, as every conv is.
 
-``quant="none"``: the float trunk. Inside, the NHWC tensor is viewed as NCHW
-in ``channels_last`` memory format, the layout cuDNN runs fastest;
+``quant="none"``: the float trunk, computing in ``dtype`` with float32
+parameters: each conv casts its input and weight at use, FrozenBN folds in
+float32 and applies in ``dtype``, GroupNorm normalizes in float32 and
+returns ``dtype``. Inside, the NHWC tensor is viewed as NCHW in
+``channels_last`` memory format, the layout cuDNN runs fastest;
 convolutions are stock PyTorch, as the JAX package left them to XLA.
 
 ``quant="int8"`` (dynamic scales; with ``observe`` the activation maxima are
@@ -19,6 +24,13 @@ For training, the stem and layer1 are always frozen (``requires_grad``
 off, as the reference's backbone freezes them); with ``remat`` each block
 that holds a trainable weight runs under ``torch.utils.checkpoint`` while
 gradients are on, so its activations are recomputed in the backward.
+``remat_policy`` says what such a block keeps for the backward besides its
+input: ``"full"`` (or ``""``) nothing; ``"save_mid"`` the 3x3 conv's output
+(conv3's input ``a2`` is its norm and ReLU), so the backward recomputes
+conv1 and conv3 but not the 3x3; ``"save_acts"`` conv1's output too
+(``a1`` is its norm and ReLU), so only conv3 and the downsample are
+recomputed. The policies are selective-checkpoint contexts over the
+block's convolutions; they change what is stored, never a value.
 
 The calibrated maxima are non-persistent buffers (``stem_act_max``,
 ``layerI.J.conv2.act_max``, ``layerI.J.conv3.act_max``, ``layerI.J.out_max``),
@@ -29,13 +41,18 @@ maps them to and from the JAX package's ``qscales`` tree.
 from __future__ import annotations
 
 from contextlib import contextmanager
+from functools import partial
 from typing import Dict
 
 import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from tubedetr_tpu_torch.ops.fused_bottleneck import (
     fold_bottleneck,
@@ -55,6 +72,29 @@ STAGE_BLOCKS = {
     "resnet101": (3, 4, 23, 3),
     "resnet152": (3, 8, 36, 3),
 }
+# remat_policy -> which of a block's convolutions (in call order: conv1,
+# conv2, conv3, downsample) keep their outputs for the backward
+KEPT_CONVS = {"": (), "full": (), "save_mid": (1,), "save_acts": (0, 1)}
+
+
+def parse_backbone_name(name: str):
+    """'resnet101' -> ('resnet101', 'frozen_bn'); 'resnet101-gn' -> (..., 'gn')."""
+    if name.endswith("-gn"):
+        return name[:-3], "gn"
+    return name, "frozen_bn"
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``dtype``: input and weight cast at use."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt),
+                                  None if self.bias is None else self.bias.to(dt))
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -84,6 +124,41 @@ class FrozenBatchNorm2d(nn.Module):
     def channels_last(self, x: torch.Tensor) -> torch.Tensor:  # (..., C)
         scale, shift = self.fold()
         return x * scale.to(x.dtype) + shift.to(x.dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    """``GroupNorm(32, eps=1e-5)`` of the ``-gn`` trunks: statistics and
+    affine in float32 on the float32 input, the result in ``dtype`` (flax
+    ``GroupNorm`` with ``dtype``)."""
+
+    def __init__(self, n: int, dtype: torch.dtype = torch.float32):
+        super().__init__(32, n, eps=BN_EPS)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
+        return F.group_norm(x.float(), self.num_groups, self.weight.float(), self.bias.float(),
+                            self.eps).to(self.compute_dtype)
+
+
+def make_norm(norm: str, n: int, dtype: torch.dtype) -> nn.Module:
+    return GroupNorm(n, dtype) if norm == "gn" else FrozenBatchNorm2d(n)
+
+
+def _keep_convs(kept) -> tuple:
+    """A selective-checkpoint context pair that keeps the outputs of the
+    convolutions numbered ``kept`` (in call order) and recomputes the rest.
+    The forward and the recompute count their convolutions apart."""
+    seen = {False: 0, True: 0}
+
+    def policy(ctx, op, *args, **kwargs):
+        if op is torch.ops.aten.convolution.default:
+            i = seen[ctx.is_recompute]
+            seen[ctx.is_recompute] = i + 1
+            if i in kept:
+                return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
 
 
 def _observer(module: nn.Module, name: str = "act_max") -> None:
@@ -146,19 +221,20 @@ class Bottleneck(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  dilation: int = 1, downsample: bool = False, quant: str = "none",
-                 fused: bool = False):
+                 fused: bool = False, norm: str = "frozen_bn",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = FrozenBatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=dilation,
-                               dilation=dilation, bias=False)
-        self.bn2 = FrozenBatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = FrozenBatchNorm2d(planes * 4)
+        self.conv1 = Conv2d(inplanes, planes, 1, bias=False, dtype=dtype)
+        self.bn1 = make_norm(norm, planes, dtype)
+        self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=dilation,
+                            dilation=dilation, bias=False, dtype=dtype)
+        self.bn2 = make_norm(norm, planes, dtype)
+        self.conv3 = Conv2d(planes, planes * 4, 1, bias=False, dtype=dtype)
+        self.bn3 = make_norm(norm, planes * 4, dtype)
         self.downsample = (
             nn.Sequential(
-                nn.Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
-                FrozenBatchNorm2d(planes * 4),
+                Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False, dtype=dtype),
+                make_norm(norm, planes * 4, dtype),
             )
             if downsample
             else None
@@ -214,31 +290,41 @@ class ResNet(nn.Module):
     3x3 convs by 2, its first block keeping the previous dilation of 1)."""
 
     def __init__(self, arch: str = "resnet101", dilation: bool = False,
-                 quant: str = "none", fused_blocks: bool = False, remat: bool = False):
+                 quant: str = "none", fused_blocks: bool = False, remat: bool = False,
+                 remat_policy: str = "full", dtype: torch.dtype = torch.float32):
         super().__init__()
-        if arch not in STAGE_BLOCKS:
-            raise NotImplementedError(f"backbone {arch!r}; expected one of {sorted(STAGE_BLOCKS)}")
+        base, norm = parse_backbone_name(arch)
+        if base not in STAGE_BLOCKS:
+            raise NotImplementedError(f"backbone {arch!r}; expected one of {sorted(STAGE_BLOCKS)}"
+                                      " (each also with -gn)")
         if quant not in QUANT_MODES:
             raise NotImplementedError(f"quant {quant!r}; expected one of {QUANT_MODES}")
+        if quant != "none" and norm == "gn":
+            raise NotImplementedError("the int8 trunk runs on FrozenBN; a GroupNorm trunk is float")
+        if remat_policy not in KEPT_CONVS:
+            raise NotImplementedError(f"remat_policy {remat_policy!r}; expected one of "
+                                      f"{sorted(KEPT_CONVS)}")
         self.quant = quant
         self.remat = remat
+        self.kept_convs = KEPT_CONVS[remat_policy]
         self.observe = False  # int8: record activation maxima (calibration)
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = FrozenBatchNorm2d(64)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False, dtype=dtype)
+        self.bn1 = make_norm(norm, 64, dtype)
         if quant != "none":
             _observer(self, "stem_act_max")
         inplanes, cur_dilation = 64, 1
-        for i, (planes, n_blocks) in enumerate(zip((64, 128, 256, 512), STAGE_BLOCKS[arch])):
+        for i, (planes, n_blocks) in enumerate(zip((64, 128, 256, 512), STAGE_BLOCKS[base])):
             stride = 1 if i == 0 else 2
             prev_dilation = cur_dilation
             if i == 3 and dilation:
                 cur_dilation *= stride
                 stride = 1
             blocks = [Bottleneck(inplanes, planes, stride, prev_dilation, downsample=True,
-                                 quant=quant)]
+                                 quant=quant, norm=norm, dtype=dtype)]
             inplanes = planes * 4
             blocks += [
-                Bottleneck(inplanes, planes, 1, cur_dilation, quant=quant, fused=fused_blocks)
+                Bottleneck(inplanes, planes, 1, cur_dilation, quant=quant, fused=fused_blocks,
+                           norm=norm, dtype=dtype)
                 for _ in range(1, n_blocks)
             ]
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
@@ -261,7 +347,10 @@ class ResNet(nn.Module):
         if self.quant == "none":
             for block in self.blocks():
                 if self.remat and torch.is_grad_enabled() and block.conv1.weight.requires_grad:
-                    x = checkpoint(block, x, use_reentrant=False)
+                    context = (partial(_keep_convs, self.kept_convs) if self.kept_convs
+                               else None)
+                    x = checkpoint(block, x, use_reentrant=False,
+                                   **({"context_fn": context} if context else {}))
                 else:
                     x = block(x)
             return x.permute(0, 2, 3, 1)

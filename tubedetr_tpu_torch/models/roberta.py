@@ -11,6 +11,10 @@ holds ``local_heads`` whole heads (query/key/value by output rows,
 ``attention.output.dense`` by input columns), the FFN ``intermediate`` by
 rows and ``output.dense`` by columns, and the embedding tables a slice of
 the hidden dim, gathered before their LayerNorm.
+
+``RobertaModel(cfg, dtype)`` computes in ``dtype`` with float32 parameters
+(``models/layers.py``): the three embedding lookups and their sum in
+``dtype``, the norms in float32.
 """
 
 from __future__ import annotations
@@ -19,10 +23,19 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from tubedetr_tpu_torch.core.sharding import gather_hidden
-from tubedetr_tpu_torch.models.layers import Dropout, attend, column_in, row_out
+from tubedetr_tpu_torch.models.layers import (
+    Dropout,
+    Embedding,
+    LayerNorm,
+    Linear,
+    attend,
+    column_in,
+    gelu,
+    residual,
+    row_out,
+)
 
 
 @dataclass(frozen=True)
@@ -50,21 +63,22 @@ def roberta_position_ids(input_ids: torch.Tensor, pad_token_id: int) -> torch.Te
 class _Dense(nn.Module):
     """A ``dense`` Linear, optionally followed by a residual ``LayerNorm``."""
 
-    def __init__(self, d_in: int, d_out: int, ln_eps: float = 0.0):
+    def __init__(self, d_in: int, d_out: int, ln_eps: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dense = nn.Linear(d_in, d_out)
+        self.dense = Linear(d_in, d_out, dtype=dtype)
         if ln_eps:
-            self.LayerNorm = nn.LayerNorm(d_out, eps=ln_eps)
+            self.LayerNorm = LayerNorm(d_out, eps=ln_eps, dtype=dtype)
 
 
 class RobertaEmbeddings(nn.Module):
-    def __init__(self, c: RobertaConfig):
+    def __init__(self, c: RobertaConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.pad_token_id = c.pad_token_id
-        self.word_embeddings = nn.Embedding(c.vocab_size, c.hidden_size)
-        self.position_embeddings = nn.Embedding(c.max_position_embeddings, c.hidden_size)
-        self.token_type_embeddings = nn.Embedding(c.type_vocab_size, c.hidden_size)
-        self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.ln_eps)
+        self.word_embeddings = Embedding(c.vocab_size, c.hidden_size, dtype)
+        self.position_embeddings = Embedding(c.max_position_embeddings, c.hidden_size, dtype)
+        self.token_type_embeddings = Embedding(c.type_vocab_size, c.hidden_size, dtype)
+        self.LayerNorm = LayerNorm(c.hidden_size, eps=c.ln_eps, dtype=dtype)
         self.dropout = Dropout(c.hidden_dropout)
         self.model_group = None
 
@@ -72,23 +86,20 @@ class RobertaEmbeddings(nn.Module):
         pos_ids = roberta_position_ids(
             input_ids.masked_fill(pad_mask, self.pad_token_id), self.pad_token_id
         )
-        x = (
-            self.word_embeddings(input_ids)
-            + self.position_embeddings(pos_ids)
-            + self.token_type_embeddings(torch.zeros_like(input_ids))
-        )
+        x = residual(self.word_embeddings(input_ids) + self.position_embeddings(pos_ids),
+                     self.token_type_embeddings(torch.zeros_like(input_ids)))
         x = gather_hidden(x, self.model_group)
         return self.dropout(self.LayerNorm(x))
 
 
 class RobertaSelfAttention(nn.Module):
-    def __init__(self, c: RobertaConfig):
+    def __init__(self, c: RobertaConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = c.num_attention_heads
         self.local_heads = c.num_attention_heads
-        self.query = nn.Linear(c.hidden_size, c.hidden_size)
-        self.key = nn.Linear(c.hidden_size, c.hidden_size)
-        self.value = nn.Linear(c.hidden_size, c.hidden_size)
+        self.query = Linear(c.hidden_size, c.hidden_size, dtype=dtype)
+        self.key = Linear(c.hidden_size, c.hidden_size, dtype=dtype)
+        self.value = Linear(c.hidden_size, c.hidden_size, dtype=dtype)
         self.dropout = Dropout(c.attention_dropout) if c.attention_dropout > 0.0 else None
 
     def forward(self, x, key_pad_mask):
@@ -98,46 +109,46 @@ class RobertaSelfAttention(nn.Module):
 
 
 class RobertaAttention(nn.Module):
-    def __init__(self, c: RobertaConfig):
+    def __init__(self, c: RobertaConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.self = RobertaSelfAttention(c)
-        self.output = _Dense(c.hidden_size, c.hidden_size, c.ln_eps)
+        self.self = RobertaSelfAttention(c, dtype)
+        self.output = _Dense(c.hidden_size, c.hidden_size, c.ln_eps, dtype)
         self.dropout = Dropout(c.hidden_dropout)
         self.model_group = None
 
     def forward(self, x, key_pad_mask):
         g = self.model_group
         h = self.dropout(row_out(self.output.dense, self.self(column_in(x, g), key_pad_mask), g))
-        return self.output.LayerNorm(x + h)
+        return self.output.LayerNorm(residual(x, h))
 
 
 class RobertaLayer(nn.Module):
-    def __init__(self, c: RobertaConfig):
+    def __init__(self, c: RobertaConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.attention = RobertaAttention(c)
-        self.intermediate = _Dense(c.hidden_size, c.intermediate_size)
-        self.output = _Dense(c.intermediate_size, c.hidden_size, c.ln_eps)
+        self.attention = RobertaAttention(c, dtype)
+        self.intermediate = _Dense(c.hidden_size, c.intermediate_size, dtype=dtype)
+        self.output = _Dense(c.intermediate_size, c.hidden_size, c.ln_eps, dtype)
         self.dropout = Dropout(c.hidden_dropout)
         self.model_group = None
 
     def forward(self, x, key_pad_mask):
         x = self.attention(x, key_pad_mask)
         g = self.model_group
-        h = F.gelu(self.intermediate.dense(column_in(x, g)))  # exact erf GELU
-        return self.output.LayerNorm(x + self.dropout(row_out(self.output.dense, h, g)))
+        h = gelu(self.intermediate.dense(column_in(x, g)))  # exact erf GELU
+        return self.output.LayerNorm(residual(x, self.dropout(row_out(self.output.dense, h, g))))
 
 
 class RobertaEncoder(nn.Module):
-    def __init__(self, c: RobertaConfig):
+    def __init__(self, c: RobertaConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.layer = nn.ModuleList(RobertaLayer(c) for _ in range(c.num_hidden_layers))
+        self.layer = nn.ModuleList(RobertaLayer(c, dtype) for _ in range(c.num_hidden_layers))
 
 
 class RobertaModel(nn.Module):
-    def __init__(self, cfg: RobertaConfig = RobertaConfig()):
+    def __init__(self, cfg: RobertaConfig = RobertaConfig(), dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.embeddings = RobertaEmbeddings(cfg)
-        self.encoder = RobertaEncoder(cfg)
+        self.embeddings = RobertaEmbeddings(cfg, dtype)
+        self.encoder = RobertaEncoder(cfg, dtype)
 
     def forward(self, input_ids: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
         """(B, L) int ids and (B, L) bool pad mask (True = pad) -> (B, L, hidden)."""

@@ -24,6 +24,18 @@ layer1 are always frozen, the whole trunk with ``freeze_backbone`` or
 ``lr_backbone <= 0``, and the text encoder with ``freeze_text_encoder``
 (which also keeps it in eval mode and out of the graph).
 
+Mixed precision is the JAX package's: parameters, gradients, optimizer
+state and the EMA stay float32, and the model computes in
+``cfg.compute_dtype``, each layer casting its input and weights at use
+(``models/layers.py``); the heads' outputs are cast to float32 for the
+losses. ``cast_compute`` stores the weights that are only ever used cast
+(convs, dense layers, embedding tables) in that dtype for serving and
+evaluation, with the same result. The position embedding is the sine one
+(``sine``, ``v2``) or the learned 50x50 grid (``learned``, ``v3``:
+``row_embed`` and ``col_embed``, channels ``[x | y]``, trained at ``lr``
+as the JAX package's top-level parameters; the reference keeps them under
+``backbone.1.``, which ``load_pretrained`` maps).
+
 With ``time_group`` set, the ranks of that process group split the flat
 frame axis of every trunk pass (slow, fast and shared) and all-gather the
 features at the JAX package's anchor, ``constrain_frame_major``; the rest
@@ -47,8 +59,8 @@ from tubedetr_tpu_torch.core.masking import (
     time_pad_mask,
 )
 from tubedetr_tpu_torch.core.sharding import gather_frames, local_frames
-from tubedetr_tpu_torch.models.layers import MLP
-from tubedetr_tpu_torch.models.resnet import FrozenBatchNorm2d, ResNet
+from tubedetr_tpu_torch.models.layers import MLP, LayerNorm, dense, sigmoid
+from tubedetr_tpu_torch.models.resnet import GroupNorm, ResNet
 from tubedetr_tpu_torch.models.roberta import RobertaConfig
 from tubedetr_tpu_torch.models.transformer import TubeDETRTransformer
 from tubedetr_tpu_torch.utils.device import resolve_device
@@ -64,16 +76,33 @@ class _Backbone(nn.Module):
         self.body = body
 
 
+LEARNED_POSITIONS = ("learned", "v3")
+
+
+class PointwiseConv(nn.Conv2d):
+    """``input_proj``: the reference's 1x1 ``Conv2d`` weights, applied as a
+    dense layer in ``dtype`` over channels-last (..., C) features."""
+
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype):
+        super().__init__(cin, cout, kernel_size=1)
+        self.compute_dtype = dtype
+
+    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        return dense(feats, self.weight[:, :, 0, 0], self.bias, self.compute_dtype)
+
+
 class TubeDETR(nn.Module):
     def __init__(self, cfg: TubeDETRConfig):
         super().__init__()
         self.cfg = cfg
         d = cfg.hidden_dim
+        dtype = self.compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         self.backbone = nn.ModuleList([_Backbone(ResNet(
             cfg.backbone, cfg.dilation, quant=cfg.backbone_quant,
             fused_blocks=cfg.fused_bottleneck, remat=cfg.remat_backbone,
+            remat_policy=cfg.remat_policy, dtype=dtype,
         ))])
-        self.input_proj = nn.Conv2d(2048, d, kernel_size=1)
+        self.input_proj = PointwiseConv(2048, d, dtype)
         self.query_embed = nn.Embedding(cfg.num_queries, d)
         self.transformer = TubeDETRTransformer(
             d_model=d,
@@ -86,6 +115,10 @@ class TubeDETR(nn.Module):
             stride=cfg.stride,
             fast=cfg.fast,
             fast_mode=cfg.fast_mode,
+            no_tsa=cfg.no_tsa,
+            learn_time_embed=cfg.learn_time_embed,
+            no_time_embed=cfg.no_time_embed,
+            dtype=dtype,
             text_cfg=RobertaConfig(
                 vocab_size=cfg.text_vocab_size,
                 hidden_size=cfg.text_hidden_size,
@@ -95,11 +128,16 @@ class TubeDETR(nn.Module):
                 max_position_embeddings=cfg.text_max_positions,
             ),
         )
-        self.bbox_embed = MLP(d, d, 4, 3)
+        self.bbox_embed = MLP(d, d, 4, 3, dtype=dtype)
         if cfg.sted:
-            self.sted_embed = MLP(d, d, 2, 2, dropout=0.5)
+            self.sted_embed = MLP(d, d, 2, 2, dropout=0.5, dtype=dtype)
         if cfg.num_queries > 1:  # the per-(frame, query) objectness logit
-            self.objectness_embed = MLP(d, d, 1, 2)
+            self.objectness_embed = MLP(d, d, 1, 2, dtype=dtype)
+        if cfg.position_embedding in LEARNED_POSITIONS:  # the 50x50 grid, uniform [0, 1)
+            self.row_embed = nn.Embedding(50, d // 2)
+            self.col_embed = nn.Embedding(50, d // 2)
+            nn.init.uniform_(self.row_embed.weight, 0.0, 1.0)
+            nn.init.uniform_(self.col_embed.weight, 0.0, 1.0)
         if cfg.freeze_backbone or cfg.lr_backbone <= 0:
             self.backbone.requires_grad_(False)
         if cfg.freeze_text_encoder:
@@ -115,18 +153,22 @@ class TubeDETR(nn.Module):
             self.transformer.text_encoder.eval()
         return self
 
-    def cast_compute(self, dtype: torch.dtype) -> "TubeDETR":
-        """Cast parameters to the compute dtype. FrozenBatchNorm buffers stay
-        float32: their fold runs in float32, as in the JAX package. So do the
-        int8 backbone's conv weights, which are quantized from float32 as the
-        JAX package quantizes its float32 kernels; the calibrated maxima are
-        buffers and stay float32 too."""
+    def cast_compute(self) -> "TubeDETR":
+        """Store in the compute dtype the parameters that every forward casts
+        to it at use, for serving and evaluation (no training step follows):
+        the result is the same, bit for bit. The others stay float32, as they
+        are used: the LayerNorm and GroupNorm affines (float32 statistics),
+        ``query_embed`` (added in float32 to the time embedding), and the
+        int8 trunk's conv weights, quantized from float32 as the JAX package
+        quantizes its float32 kernels; FrozenBN statistics and the calibrated
+        maxima are buffers and stay float32 too."""
         keep = set(map(id, self.backbone[0].body.int8_convs()))
         for m in self.modules():
-            if isinstance(m, FrozenBatchNorm2d) or id(m) in keep:
+            if isinstance(m, (LayerNorm, GroupNorm)) or id(m) in keep:
                 continue
             for p in m.parameters(recurse=False):
-                p.data = p.data.to(dtype)
+                if p is not self.query_embed.weight:
+                    p.data = p.data.to(self.compute_dtype)
         return self
 
     def backbone_feats(self, frames: torch.Tensor) -> torch.Tensor:
@@ -134,7 +176,7 @@ class TubeDETR(nn.Module):
         With a ``time_group`` each of its ranks runs the trunk on its share
         of the N frames and the shares are all-gathered
         (``core/sharding.py``)."""
-        frames = frames.to(self.input_proj.weight.dtype)
+        frames = frames.to(self.compute_dtype)
         if self.time_group is None:
             return self.backbone[0].body(frames)
         n = frames.shape[0]
@@ -149,15 +191,20 @@ class TubeDETR(nn.Module):
     def project_frames(self, feats: torch.Tensor, pad_mask: torch.Tensor):
         """Projection + masks over (N, h, w, 2048) trunk features.
 
-        Returns tokens (N, h*w, D), feature pad mask (N, h*w) and the sine
+        Returns tokens (N, h*w, D), feature pad mask (N, h*w) and the
         position embedding (N, h*w, D); ``pad_mask`` is the (N, H, W) pixel
         pad mask."""
-        dtype = self.input_proj.weight.dtype
+        dt = self.compute_dtype
         n, h, w, _ = feats.shape
         d = self.cfg.hidden_dim
         fmask = downsample_pad_mask(pad_mask, h, w)
-        pos = position_embedding_sine(fmask, num_pos_feats=d // 2, dtype=dtype)
-        src = F.linear(feats, self.input_proj.weight[:, :, 0, 0], self.input_proj.bias)
+        if self.cfg.position_embedding in LEARNED_POSITIONS:  # channels [x | y]
+            pos = torch.cat([self.col_embed.weight[None, :w].expand(h, w, d // 2),
+                             self.row_embed.weight[:h, None].expand(h, w, d // 2)], dim=-1)
+            pos = pos.to(dt)[None].expand(n, h, w, d)
+        else:
+            pos = position_embedding_sine(fmask, num_pos_feats=d // 2, dtype=dt)
+        src = self.input_proj(feats)
         return src.reshape(n, h * w, d), fmask.reshape(n, h * w), pos.reshape(n, h * w, d)
 
     def forward(
@@ -239,10 +286,13 @@ class TubeDETR(nn.Module):
         )
         hs = tr["hs"]  # (n_layers, B, T*nq, D), frame-major
         nl, nq = hs.shape[0], cfg.num_queries
-        coord_q = torch.sigmoid(self.bbox_embed(hs)).float().reshape(nl, b, t, nq, 4)
+        coord_q = sigmoid(self.bbox_embed(hs)).float().reshape(nl, b, t, nq, 4)
         # per frame: TSA weights mean over both query blocks (times nq), cross
         # weights mean over the frame's queries; both the identity at nq=1
-        tsa = tr["tsa_weights"].float().reshape(nl, b, t, nq, t, nq).mean(dim=(3, 5)) * nq
+        # (no_tsa, which requires nq=1, keeps its (B, T, 1) weights)
+        tsa = tr["tsa_weights"].float()
+        if not cfg.no_tsa:
+            tsa = tsa.reshape(nl, b, t, nq, t, nq).mean(dim=(3, 5)) * nq
         ca = tr["cross_weights"].float().reshape(nl, b, t, nq, -1).mean(dim=3)
         out = {
             "pred_boxes": coord_q[-1, :, :, 0],
@@ -293,6 +343,7 @@ class TubeDETR(nn.Module):
 
 def build_model(cfg: TubeDETRConfig, device="cuda") -> TubeDETR:
     """The inference model on ``device`` (the card unless the caller asks
-    for the CPU), in float32; ``TubeDETR.cast_compute`` moves it to the
-    compute dtype once weights are in place."""
+    for the CPU), with float32 parameters; it computes in
+    ``cfg.compute_dtype``, and ``TubeDETR.cast_compute`` stores its
+    cast-at-use weights in that dtype once they are in place."""
     return TubeDETR(cfg.validate()).eval().to(resolve_device(device))

@@ -40,6 +40,8 @@ import torch.distributed as dist
 from torch import nn
 from torch.utils import _pytree as pytree
 
+from tubedetr_tpu_torch.models.layers import computing_in
+
 
 @dataclass
 class PipeMesh:
@@ -282,16 +284,19 @@ def encoder_stack_params(model: nn.Module) -> nn.ModuleList:
 
 
 def pipelined_encoder_apply(stack, x: torch.Tensor, pos: torch.Tensor, key_pad_mask: torch.Tensor,
-                            *, mesh: PipeMesh, microbatches: int) -> torch.Tensor:
+                            *, mesh: PipeMesh, microbatches: int,
+                            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The space-text encoder stack pipelined with clips as the units: ``x``
     and ``pos`` ``(N, S, D)``, ``key_pad_mask`` ``(N, S)`` (True = pad), N =
     B * Tc. Equal to the model's sequential stack (the layers' dropout must
-    be off)."""
+    be off). ``dtype``: the layers' compute dtype (None: the one they were
+    built with, the model's ``compute_dtype``)."""
     def layer_fn(layer, y, aux):
         return layer(y, aux[0], aux[1])[0]
 
-    return pipeline_apply(layer_fn, stack, x, (pos, key_pad_mask), mesh=mesh,
-                          microbatches=microbatches)
+    with computing_in(stack, dtype):
+        return pipeline_apply(layer_fn, stack, x, (pos, key_pad_mask), mesh=mesh,
+                              microbatches=microbatches)
 
 
 def decoder_stack_params(model: nn.Module) -> nn.ModuleList:
@@ -301,17 +306,21 @@ def decoder_stack_params(model: nn.Module) -> nn.ModuleList:
 
 
 def pipelined_decoder_apply(stack, tgt, query_pos, memory, memory_pos, memory_pad_mask,
-                            query_pad_mask, *, mesh: PipeMesh, microbatches: int):
+                            query_pad_mask, *, mesh: PipeMesh, microbatches: int,
+                            dtype: Optional[torch.dtype] = None):
     """The space-time decoder stack pipelined with videos as the units:
     ``tgt``/``query_pos`` ``(B, T*nq, D)``, ``memory``/``memory_pos`` ``(B, T,
     S, D)``, the masks ``(B, T, S)`` and ``(B, T*nq)``. Returns ``(hs, tsa_w,
     cross_w)``, every layer's output and attention weights stacked ``(L, B,
-    ...)``, pre-norm."""
+    ...)``, pre-norm; with ``no_tsa`` layers (the model's ``--no_tsa``) the
+    TSA weights are ``(L, B, T*nq, 1)``. ``dtype`` as for the encoder."""
     def layer_fn(layer, y, aux):
         out, w, cw = layer(y, *aux)
         return out, (out, w, cw)
 
-    _, (hs, tsa, cross) = pipeline_apply(
-        layer_fn, stack, tgt, (query_pos, memory, memory_pos, memory_pad_mask, query_pad_mask),
-        mesh=mesh, microbatches=microbatches, collect=True)
+    with computing_in(stack, dtype):
+        _, (hs, tsa, cross) = pipeline_apply(
+            layer_fn, stack, tgt, (query_pos, memory, memory_pos, memory_pad_mask,
+                                   query_pad_mask),
+            mesh=mesh, microbatches=microbatches, collect=True)
     return hs, tsa, cross

@@ -12,8 +12,13 @@ host memory at once and writes it on a thread.
 
 ``--load`` (``load_pretrained``) takes a reference or port ``.pth``: the
 EMA weights when present, ``query_embed`` cut to ``num_queries``, the sine
-time-embedding buffer dropped, ``--rd_init_tsa`` keeping the decoder's
-temporal self-attention at init, and the rest merged non-strictly. A JAX
+time-embedding buffer dropped, the reference's learned position grid
+(``backbone.1.{row,col}_embed``) moved to the port's top-level names,
+``--rd_init_tsa`` keeping the decoder's temporal self-attention at init,
+and the rest merged non-strictly. A trunk's norms are GroupNorm when the
+checkpoint has no ``bn1.running_mean`` (as the JAX package's
+``convert_resnet`` reads it); a checkpoint whose norms are not the
+model's is refused. A JAX
 package checkpoint (a ``.ckpt`` pickle or an orbax directory) is refused:
 its ``opt_state`` unpickles only with ``optax`` installed.
 """
@@ -47,7 +52,18 @@ def warm_start_surgery(sd: Dict, num_queries: int) -> Dict:
     if "query_embed.weight" in sd and sd["query_embed.weight"].shape[0] > num_queries:
         sd["query_embed.weight"] = sd["query_embed.weight"][:num_queries]
     sd.pop("transformer.time_embed.te", None)
+    for grid in ("row_embed", "col_embed"):  # the reference's Joiner holds them
+        if f"backbone.1.{grid}.weight" in sd:
+            sd[f"{grid}.weight"] = sd.pop(f"backbone.1.{grid}.weight")
     return sd
+
+
+def trunk_norm(sd: Dict) -> Optional[str]:
+    """'gn' or 'frozen_bn' for the trunk a ``state_dict`` holds (GroupNorm
+    has no running statistics), None without a trunk."""
+    if "backbone.0.body.bn1.weight" not in sd:
+        return None
+    return "frozen_bn" if "backbone.0.body.bn1.running_mean" in sd else "gn"
 
 
 # ---------------------------------------------------------------------------
@@ -178,6 +194,10 @@ def load_pretrained(model: torch.nn.Module, path_or_ckpt, rd_init_tsa: bool = Fa
     sd = (load_torch_state_dict(path_or_ckpt) if isinstance(path_or_ckpt, str)
           else preferred_state_dict(path_or_ckpt))
     sd = warm_start_surgery(sd, model.query_embed.weight.shape[0])
+    have, want = trunk_norm(sd), trunk_norm(model.state_dict())
+    if have is not None and have != want:
+        raise ValueError(f"the checkpoint's trunk norms are {have}, the model's {want} "
+                         "(a -gn backbone loads a GroupNorm checkpoint)")
     if rd_init_tsa:
         sd = {k: v for k, v in sd.items() if not TSA_KEYS.match(k)}
     result = model.load_state_dict(sd, strict=False)

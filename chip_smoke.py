@@ -25,7 +25,8 @@ line:
    int8_static unfused in bf16. Each path's kernel launch counts are zeroed
    just before it and read just after;
 5. small requests through the pipeline on the card and on the CPU (the
-   plain path), float and int8_static + fused, which must agree;
+   plain path), float, int8_static + fused and int8_qat on the int8
+   model's scales, which must agree;
 6. the serving path, the port's HTTP ``Server`` (``apps/serve.py``) at full
    width on the card: the int8_static + K2 model with ``serve_max_batch=2``
    and a 50 ms window behind a ``ThreadingHTTPServer`` on a local port; a
@@ -70,7 +71,17 @@ line:
    and the step-0 dropout-free loss in both dtypes; ``[remat]``: each
    ``remat_policy`` (full, save_mid, save_acts, off) in bfloat16, the
    forward + backward seconds and peak memory, the gradients equal to the
-   bit with deterministic kernels;
+   bit with deterministic kernels; ``[train-quant]``: the quantized training
+   passes in bfloat16 on the same videos and weights (``int8_qat``, and the
+   float trunk with its fast pass and frozen prefix int8_static: each
+   calibrated on the first batch, ``QUANT_STEPS`` steps, the split, trunk
+   passes and peak, the frozen tensors unchanged, K1 and K2 never
+   launched; the fast pass equal to the bit to an int8_static trunk's
+   features), the drift probe and one recalibration after the QAT steps,
+   the deploy leg (the QAT checkpoint reloaded by an int8_static + K2
+   ``GroundingPipeline`` at serving width: its scales, no calibration, K1
+   once, K2 29 times and exact), and ``resnet101-gn`` under int8_static at
+   serving width (a B=1 call, K2 never launched);
 9. the train CLI (``phase_cli``, ``phase_cli_small``): ``apps/train.py:main``
    at the published training config over a VidSTG-layout set it writes (4
    train and 2 val videos of 200 frames of 360x640): one epoch with three
@@ -121,7 +132,8 @@ line:
 Then the script's seconds, one ``kernels`` JSON line (each kernel's
 ``launches`` counted on phase 6's path, and by path: serve, the int8 + K2
 pipeline, train, train in bf16, the model flags' int8 + K2 legs, the CLI's
-int8 eval and its reload request, and K2's on
+int8 eval and its reload request, the quantized training legs and the QAT
+deploy request, and K2's on
 rank 0's time-split and tensor-parallel evals of phase 10), the
 ``nvidia-smi`` line again, and,
 last, the ``ok`` JSON line. There is no CPU path: without a card the script exits 2.
@@ -169,6 +181,13 @@ K2_PER_PASS = 29  # 2 + 3 + 22 + 2 tails in ResNet-101
 # SMALL_INT8_STEPS steps of its own scale; the heads' outputs by the atol.
 SMALL_INT8_STEPS = 4
 SMALL_INT8_ATOL = {"pred_boxes": 1e-3, "pred_sted": 1e-3}
+# the small QAT model card vs CPU on the int8 model's scales: every conv is a
+# float conv (cuDNN vs oneDNN sum in other orders), so flipped roundings move
+# more of the trunk than in the int8 model; the trunk's outputs are held by
+# correlation (tests/test_torch_int8.py's trunk bound) and the heads' by the
+# JAX package's QAT-vs-int8_static bound (tests/test_qat.py)
+SMALL_QAT_CORR = 0.999
+SMALL_QAT_ATOL = {"pred_boxes": 5e-3, "pred_sted": 5e-3}
 
 # P1-P5, the probes: the scripts' default specs plus both flat variants, at
 # the scripts' full shapes; noshift and convonly again beside K2 at layer3's
@@ -191,6 +210,10 @@ TRAIN_BF16_RTOL = 1e-2
 CLI_VIDEOS = (4, 2)
 CLI_CLIP = (200, 360, 640)
 CLI_PROFILE_STEP = 2
+# the quantized training phase: steps a leg (one cold, two warm) and the
+# frames of the fast pass held bit for bit against an int8_static trunk
+QUANT_STEPS = 3
+QUANT_CHECK_FRAMES = 16
 
 
 def fail(msg: str) -> None:
@@ -936,7 +959,9 @@ def phase_small_int8_agreement(workdir: str):
     """The small config with resnet26 (one K2 tail per stage), int8_static +
     fused: calibrated once on the CPU, the same scales copied to the card,
     the same bf16 frames on both; the trunk's output in steps of its scale,
-    and the boxes and sted logits against ``SMALL_INT8_ATOL``."""
+    and the boxes and sted logits against ``SMALL_INT8_ATOL``. Then the
+    same model in ``int8_qat`` on those scales and frames, card against
+    CPU (``SMALL_QAT_CORR``, ``SMALL_QAT_ATOL``)."""
     import numpy as np
     import torch
 
@@ -974,6 +999,35 @@ def phase_small_int8_agreement(workdir: str):
         print(f"[small-int8] {k}: max |card - cpu| = {d} (atol {atol})", flush=True)
         if not d <= atol:
             fail(f"small int8 request: {k} differs between card and CPU by {d}")
+
+    # the same model trained with fake quantization (int8_qat) on the same
+    # scales and frames: float convs on the int8 grid, no K2
+    qcfg = cfg.replace(backbone_quant="int8_qat", fused_bottleneck=False)
+    scales = model_qscales(cpu.model)
+    qat = {}
+    for dev, frames in (("cpu", frames_cpu), ("cuda", sample.frames)):
+        pipe = GroundingPipeline(qcfg, device=dev)
+        pipe.set_qscales(scales)
+        sample.frames = frames
+        before = fused_bottleneck_block.launches
+        out = pipe.forward([sample])[0]
+        if fused_bottleneck_block.launches != before:
+            fail("small QAT: the QAT model launched K2")
+        with torch.inference_mode():
+            trunk = pipe.model.backbone[0].body(frames.float()).float().cpu().numpy()
+        qat[dev] = (out, trunk)
+    corr = float(np.corrcoef(qat["cuda"][1].ravel(), qat["cpu"][1].ravel())[0, 1])
+    line = {"trunk_corr": corr, "trunk_max_steps": float(
+        np.abs(qat["cuda"][1] - qat["cpu"][1]).max() / step)}
+    for k in SMALL_QAT_ATOL:
+        line[k] = float(np.abs(qat["cuda"][0][k] - qat["cpu"][0][k]).max())
+    print(f"[small-qat] card vs cpu: {json.dumps(line)} (corr above {SMALL_QAT_CORR}, atol "
+          f"{SMALL_QAT_ATOL})", flush=True)
+    if not corr > SMALL_QAT_CORR:
+        fail(f"small QAT request: trunk correlation card vs CPU {corr}")
+    for k, atol in SMALL_QAT_ATOL.items():
+        if not line[k] <= atol:
+            fail(f"small QAT request: {k} differs between card and CPU by {line[k]}")
 
 
 def http_json(url: str, timeout: float = WAIT_S):
@@ -1521,16 +1575,17 @@ def phase_train_small():
 
 def train_trunk_passes(model, batch, cfg):
     """Seconds of the trunk's two training passes over one batch, alone:
-    the slow pass (forward with gradients kept, then its backward from a
-    unit gradient) and the fast pass without gradients (the k-1 of every k
-    frames the slow pass did not cover)."""
+    the slow pass (forward with gradients kept, its frozen prefix in
+    ``backbone_quant_frozen``, then its backward from a unit gradient) and
+    the fast pass without gradients (the k-1 of every k frames the slow
+    pass did not cover, in ``backbone_quant_fast``)."""
     import torch
 
     from tubedetr_tpu_torch.parallel.train_step import model_inputs, to_device
 
     inputs = model_inputs(to_device(batch, next(model.parameters()).device))
     slow = inputs["frames_slow"].flatten(0, 1)
-    feats, fwd_s = synced(lambda: model.backbone_feats(slow))
+    feats, fwd_s = synced(lambda: model.backbone_feats(slow, **model.pass_modes(False)))
     _, bwd_s = synced(lambda: feats.backward(torch.ones_like(feats)))
     model.zero_grad(set_to_none=True)
     with torch.no_grad():
@@ -1826,7 +1881,222 @@ def phase_train_bf16(smi: str, f32: dict):
     phase_remat(smi, cfg, state, extra_batch)
     del state, model, pairs, samples
     torch.cuda.empty_cache()
-    return launches
+    return launches, line
+
+
+def quant_leg(smi: str, label: str, cfg, pairs):
+    """One quantized training leg at full width: the model from the fan-in
+    weights, its scales calibrated on the first batch (one observer
+    forward, timed), then ``QUANT_STEPS`` steps of ``train_one_epoch``.
+    Checks: every loss term finite; the frozen stem and layer1 and every
+    FrozenBN buffer unchanged bit for bit, layer2-4 changed; K1 and K2
+    never launched. Returns (line, model, state)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from tubedetr_tpu_torch.models.quantize import calibrate_qscales
+    from tubedetr_tpu_torch.models.resnet import FrozenBatchNorm2d
+    from tubedetr_tpu_torch.models.tubedetr import build_model
+    from tubedetr_tpu_torch.ops.fused_bottleneck import fused_bottleneck_block
+    from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize
+    from tubedetr_tpu_torch.parallel.train_step import create_train_state, model_inputs, to_device
+    from tubedetr_tpu_torch.train.engine import train_one_epoch
+
+    leg_t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    model.load_state_dict(fan_in_state_dict(model, seed=8))
+    inputs = model_inputs(to_device(pairs[0][0], torch.device("cuda")))
+    _, calibration_s = synced(lambda: calibrate_qscales(cfg, model, inputs))
+    del inputs
+    state = create_train_state(cfg, model)
+    before = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    resize_normalize.launches = 0
+    fused_bottleneck_block.launches = 0
+    step = timed_step(cfg)
+    state, _ = train_one_epoch(cfg, step, state, pairs[:QUANT_STEPS], 0,
+                               cfg.epochs * QUANT_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {"resize_normalize": resize_normalize.launches,
+                "fused_bottleneck": fused_bottleneck_block.launches}
+    for i, m in enumerate(step.metrics):
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad:
+            fail(f"{label}: step {i} non-finite {bad}")
+    after = model.state_dict()
+    frozen = [n for n, p in model.named_parameters() if not p.requires_grad]
+    if not frozen or any(not n.startswith(("backbone.0.body.conv1.", "backbone.0.body.layer1."))
+                         for n in frozen):
+        fail(f"{label}: the frozen parameters are not the stem and layer1: {frozen[:5]}")
+    frozen += [f"{m}.{b}" for m, mod in model.named_modules() if isinstance(mod, FrozenBatchNorm2d)
+               for b, _ in mod.named_buffers()]
+    moved = [n for n in frozen if not torch.equal(before[n], after[n])]
+    if moved:
+        fail(f"{label}: frozen tensors changed: {moved[:5]}")
+    for prefix in ("backbone.0.body.layer2.", "backbone.0.body.layer3.", "backbone.0.body.layer4."):
+        names = [n for n, p in model.named_parameters() if n.startswith(prefix)]
+        if all(torch.equal(before[n], after[n]) for n in names):
+            fail(f"{label}: no parameter under {prefix} changed")
+    if launches["resize_normalize"] or launches["fused_bottleneck"]:
+        fail(f"{label}: the training path launched K1 or K2: {launches}")
+    passes = train_trunk_passes(model, pairs[QUANT_STEPS][0], cfg)
+    warm = [sp["step_s"] for sp in step.split[1:]]
+    line = {
+        "card": smi, "steps": len(step.split), "cold_step_s": step.split[0]["step_s"],
+        "warm_step_median_s": float(np.median(warm)), "warm_steps_s": warm,
+        "warm_split_median_s": {k: float(np.median([sp[k] for sp in step.split[1:]]))
+                                for k in ("forward_loss_s", "backward_s", "clip_opt_ema_s")},
+        "trunk_passes_s": passes, "peak_memory_gib_remat_on": peak,
+        "calibration_s": calibration_s,
+        "loss_total": [m["loss_total"] for m in step.metrics],
+        "grad_norm_pre_clip": [m["grad_norm"] for m in step.metrics],
+        "launches": launches, "leg_s": time.perf_counter() - leg_t0,
+    }
+    return line, model, state
+
+
+def phase_train_quant(smi: str, bf16: dict):
+    """The quantized training passes at full width (``[train-quant]``), the
+    published training config in bfloat16 on ``phase_train_bf16``'s videos
+    and weights: (1) ``int8_qat``: calibration, ``QUANT_STEPS`` steps, the
+    split, trunk passes and peak beside ``[train-bf16]``'s (``bf16``); (5)
+    the drift probe after them and one recalibration; (3) the deploy leg:
+    leg 1's weights and scales written by ``checkpoint_payload``, reloaded
+    by an int8_static + K2 ``GroundingPipeline`` at serving width, one
+    request: the scales from the checkpoint (no calibration), K1 once and
+    within its bound on the request's frames, K2 ``K2_PER_PASS`` times and
+    exact against its plain version, boxes finite; (2) the float trunk with
+    ``backbone_quant_fast`` and ``backbone_quant_frozen`` int8_static: the
+    same prints, and the fast pass's features equal, bit for bit, those of
+    an int8_static unfused trunk on the same weights, scales and frames;
+    (4) ``resnet101-gn`` under int8_static (``fused_bottleneck`` asked) at
+    serving width: a cold and a warm B=1 call, their seconds and peak, K2
+    never launched. Returns the launches of K1 and K2 by leg."""
+    import numpy as np
+    import torch
+
+    from tubedetr_tpu_torch.apps.pipeline import GroundingPipeline
+    from tubedetr_tpu_torch.data.collate import collate_pairs
+    from tubedetr_tpu_torch.data.synthetic import make_synthetic_sample
+    from tubedetr_tpu_torch.models.quantize import make_drift_checker, model_qscales, recalibrate
+    from tubedetr_tpu_torch.models.resnet import ResNet
+    from tubedetr_tpu_torch.ops.fused_bottleneck import fused_bottleneck_block
+    from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize
+    from tubedetr_tpu_torch.parallel.train_step import model_inputs, to_device
+    from tubedetr_tpu_torch.train.checkpoint import checkpoint_payload, save_checkpoint
+
+    phase_t0 = time.perf_counter()
+    base = train_cfg().replace(compute_dtype="bfloat16")
+    h, w = TRAIN_HW
+    samples = [make_synthetic_sample(100 + i, t=TRAIN_T, h=h, w=w, vocab=base.text_vocab_size,
+                                     text_len=12) for i in range(QUANT_STEPS + 1)]
+    pairs = collate_pairs(samples, 1, base.video_max_len_train, base.stride, base.max_text_len)
+    workdir = os.path.join(HERE, "tubedetr_tpu_torch", "build", "quant")
+    os.makedirs(workdir, exist_ok=True)
+    out = {}
+    try:
+        # (1) int8_qat, then (5) the drift probe and one recalibration
+        cfg = base.replace(backbone_quant="int8_qat").validate_training()
+        line, model, state = quant_leg(smi, "train-quant int8_qat", cfg, pairs)
+        out["train int8_qat"] = line["launches"]
+        line["bf16"] = {k: bf16[k] for k in ("warm_step_median_s", "warm_split_median_s",
+                                            "trunk_passes_s", "peak_memory_gib_remat_on")}
+        print(f"[train-quant] int8_qat: {json.dumps(line)}", flush=True)
+        inputs = model_inputs(to_device(pairs[QUANT_STEPS][0], torch.device("cuda")))
+        (ratio, leaf, observed), drift_s = synced(lambda: make_drift_checker(cfg)(model, inputs))
+        _, recal_s = synced(lambda: recalibrate(cfg, model, observed))
+        del inputs
+        if not (np.isfinite(ratio) and ratio > 0 and leaf):
+            fail(f"train-quant drift: ratio {ratio} at {leaf!r}")
+        held = model_qscales(model)
+        if any(float(held[k]) != float(v) for k, v in observed.items()):
+            fail("train-quant drift: the recalibrated scales are not the observed maxima")
+        drift = {"worst_observed_over_baked": ratio, "leaf": leaf, "drift_s": drift_s,
+                 "recalibrate_s": recal_s}
+        print(f"[train-quant] drift: {json.dumps(drift)}", flush=True)
+
+        # (3) deploy: the QAT weights and scales served int8_static + K2
+        ckpt = os.path.join(workdir, "qat.pth")
+        payload = checkpoint_payload(state, 0, cfg, qscales=held)
+        payload["optimizer"] = None  # serving reads no optimizer state
+        save_checkpoint(ckpt, payload)
+        del payload, state, model
+        torch.cuda.empty_cache()
+        clip = os.path.join(workdir, "request.npy")
+        np.save(clip, np.random.RandomState(0).randint(0, 256, K1_SHAPE, dtype=np.uint8))
+        pipe = GroundingPipeline(full_width_cfg("bfloat16", backbone_quant="int8_static",
+                                                fused_bottleneck=True))
+        pipe.reload(ckpt)
+        if pipe._needs_calibration or pipe.qscales_source != "checkpoint":
+            fail("train-quant deploy: the reload of the QAT checkpoint asks for calibration")
+        if {k: float(v) for k, v in model_qscales(pipe.model).items()} != \
+                {k: float(v) for k, v in held.items()}:
+            fail("train-quant deploy: the pipeline does not hold the QAT checkpoint's scales")
+        resize_normalize.launches = 0
+        fused_bottleneck_block.launches = 0
+        with K1Capture() as k1, K2Capture() as k2:
+            result, request_s = synced(lambda: pipe.ground(clip, "a man in a red shirt",
+                                                           render=False))
+            launches = {"resize_normalize": resize_normalize.launches,
+                        "fused_bottleneck": fused_bottleneck_block.launches}
+        out["qat deploy int8_static+fused"] = launches
+        if launches != {"resize_normalize": 1, "fused_bottleneck": K2_PER_PASS}:
+            fail(f"train-quant deploy: the request launched {launches}; expected K1 once, "
+                 f"K2 {K2_PER_PASS} times")
+        if pipe.calibration_s:
+            fail("train-quant deploy: the pipeline calibrated")
+        check_tubes("train-quant deploy", [result])
+        deploy = {"request_s": request_s, "segment": result["sted"], "launches": launches,
+                  "k1_max_abs_err": k1.check("train-quant deploy"), "k2_max_abs_err": k2.check()}
+        print(f"[train-quant] deploy: {json.dumps(deploy)}", flush=True)
+        del pipe
+
+        # (2) the float bf16 trunk, its fast pass and frozen prefix int8_static
+        cfg = base.replace(backbone_quant_fast="int8_static",
+                           backbone_quant_frozen="int8_static").validate_training()
+        line, model, state = quant_leg(smi, "train-quant fast+frozen", cfg, pairs)
+        out["train fast+frozen int8_static"] = line["launches"]
+        body = model.backbone[0].body
+        trunk = ResNet("resnet101", quant="int8_static", dtype=torch.bfloat16).cuda().eval()
+        trunk.load_state_dict(body.state_dict())
+        trunk.load_qscales(body.qscales())
+        frames = pairs[QUANT_STEPS][0]["frames_fast"][0, 1:1 + QUANT_CHECK_FRAMES].cuda()
+        with torch.no_grad():
+            fast = model.backbone_feats(frames, **model.pass_modes(True))
+            ref = trunk(frames.to(torch.bfloat16))
+        line["fast_pass_equals_int8_static_trunk"] = bool(torch.equal(fast, ref))
+        if not line["fast_pass_equals_int8_static_trunk"]:
+            fail("train-quant fast+frozen: the fast pass differs from an int8_static trunk, max "
+                 f"|diff| {(fast.float() - ref.float()).abs().max().item()}")
+        print(f"[train-quant] fast+frozen int8_static: {json.dumps(line)}", flush=True)
+        del model, state, trunk, fast, ref, frames
+        torch.cuda.empty_cache()
+
+        # (4) resnet101-gn under int8_static at serving width, B=1
+        torch.cuda.reset_peak_memory_stats()
+        pipe = GroundingPipeline(full_width_cfg("bfloat16", backbone="resnet101-gn",
+                                                backbone_quant="int8_static",
+                                                fused_bottleneck=True))
+        fused_bottleneck_block.launches = 0
+        result, cold_s = synced(lambda: pipe.ground(clip, "a man in a red shirt", render=False))
+        result, warm_s = synced(lambda: pipe.ground(clip, "a man in a red shirt", render=False))
+        gn = {"cold_ground_b1_s": cold_s, "calibration_s": pipe.calibration_s,
+              "warm_ground_b1_s": warm_s,
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "segment": result["sted"], "k2_launches": fused_bottleneck_block.launches}
+        check_tubes("train-quant gn", [result])
+        if gn["k2_launches"]:
+            fail(f"train-quant gn: the GroupNorm trunk launched K2 {gn['k2_launches']} times")
+        print(f"[train-quant] resnet101-gn int8_static: {json.dumps(gn)}", flush=True)
+        del pipe
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"[train-quant] phase_s {time.perf_counter() - phase_t0:.1f}", flush=True)
+    return out
 
 
 REMAT_POLICIES = ("full", "save_mid", "save_acts", "off")
@@ -2772,7 +3042,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_small()
     train_launches, train_line = phase_train(smi)
-    train_bf16_launches = phase_train_bf16(smi, train_line)
+    train_bf16_launches, bf16_line = phase_train_bf16(smi, train_line)
+    quant_launches = phase_train_quant(smi, bf16_line)
     cli_launches = phase_cli(smi)
     phase_cli_small()
     dist_launches, dist_tp_launches = phase_dist(smi)
@@ -2787,7 +3058,8 @@ def main() -> int:
                                      "train bf16": train_bf16_launches[key],
                                      "model flags int8_static+fused": flag_launches[key],
                                      "cli int8 eval": cli_launches["int8_eval"][key],
-                                     "cli reload request": cli_launches["reload_request"][key]}
+                                     "cli reload request": cli_launches["reload_request"][key],
+                                     **{path: n[key] for path, n in quant_launches.items()}}
     k2["launches_by_path"]["dist int8 eval (rank 0)"] = dist_launches
     k2["launches_by_path"]["dist tp int8 eval (rank 0)"] = dist_tp_launches
 

@@ -28,6 +28,10 @@ written by ``data/synthetic.py:write_vidstg_dir``.
 * ``GroundingPipeline.reload`` of the CLI's checkpoint serves the tube of
   the model trained in process, and an int8_static reload of a checkpoint
   carrying its scales runs no calibration.
+* Quantized training: two epochs of ``--backbone_quant int8_qat
+  --recalibrate_each_epoch --log_quant_drift`` print each epoch's drift and
+  recalibration, and the checkpoint carries the recalibrated scales, which
+  an int8_static ``GroundingPipeline.reload`` serves without calibrating.
 * The int8 weight caches against the EMA weights: an ``ema=True`` eval
   step after a forward of the raw weights equals a model holding the EMA
   weights, exactly.
@@ -398,10 +402,14 @@ def test_mesh_and_sharding_flags_are_refused(flag):
 
 @pytest.mark.parametrize("flag", ["--log_quant_drift", "--recalibrate_each_epoch"])
 def test_quant_drift_flags_are_refused(flag):
-    """The drift log and the per-epoch recalibration act on quantized
-    training passes the port does not run yet: refused, not ignored."""
-    with pytest.raises(NotImplementedError, match="Secondary features"):
-        config_from_args([flag])
+    """The drift log and the per-epoch recalibration run with the quantized
+    training passes: no longer refused, they reach the config (the run is
+    ``test_qat_cli_recalibrates_and_the_checkpoint_serves_int8``); training
+    an int8_static backbone stays refused, as in the JAX CLI."""
+    cfg = config_from_args([flag, "--backbone_quant", "int8_qat"])
+    assert cfg.log_quant_drift or cfg.recalibrate_each_epoch
+    with pytest.raises(NotImplementedError, match="int8_qat"):
+        train.main([flag, "--backbone_quant", "int8_static", "--device", "cpu"])
 
 
 def test_feed_flags_reach_the_loader(data, tmp_path, monkeypatch):
@@ -441,6 +449,42 @@ def test_feed_flags_reach_the_loader(data, tmp_path, monkeypatch):
         train.main(cli_args(data, tmp_path, "--backbone_quant", "int8_static", "--device", "cpu"))
     with pytest.raises(ValueError, match="frames_dtype"):
         TubeDETRConfig(frames_dtype="float16").validate()
+
+
+def test_qat_cli_recalibrates_and_the_checkpoint_serves_int8(data, tmp_path, capsys,
+                                                            monkeypatch):
+    out = tmp_path / "qat"
+    stats = train.RunStats()
+    args = cli_args(data, out, "--device", "cpu", "--epochs", "2", "--eval_skip", "2",
+                    "--backbone_quant", "int8_qat", "--recalibrate_each_epoch",
+                    "--log_quant_drift", "--qscales_dir", "")
+    assert train.main(args, stats) == 0
+    printed = capsys.readouterr().out
+    assert "[quant] int8_qat scales calibrated (vidstg val batch)" in printed
+    assert "[quant] training scales reuse the eval calibration" in printed
+    for epoch in (0, 1):
+        assert f"[quant] epoch {epoch} activation drift: worst observed/baked = " in printed
+        assert f"[quant] epoch {epoch} scales recalibrated" in printed
+    ck = checkpoint.load_checkpoint(str(out / "checkpoint.pth"))
+    held = quantize.model_qscales(stats.state.model)
+    assert set(ck["qscales"]) == set(held) and len(held) == 1 + 4 * 3
+    assert all(float(ck["qscales"][k]) == float(v) > 0 for k, v in held.items())
+    assert all(np.isfinite(v) for v in log_lines(out)[-1].values() if isinstance(v, float))
+
+    cfg = config_from_args(MODEL_ARGS).replace(device="cpu", backbone_quant="int8_static",
+                                               fused_bottleneck=True)
+    pipe = GroundingPipeline(cfg, device="cpu")
+
+    def refuse(*a, **kw):
+        raise AssertionError("calibrated although the checkpoint carries scales")
+
+    monkeypatch.setattr(quantize, "calibrate_qscales", refuse)
+    pipe.reload(str(out / "checkpoint.pth"))
+    assert pipe.qscales_source == "checkpoint"
+    res = pipe.ground(f"{data}/val0.npy", "the red square", render=False)
+    assert {k: float(v) for k, v in quantize.model_qscales(pipe.model).items()} == \
+        {k: float(v) for k, v in held.items()}
+    assert np.isfinite(np.asarray(res["boxes"])).all()
 
 
 # ---------------------------------------------------------------------------

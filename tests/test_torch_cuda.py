@@ -5,7 +5,8 @@ bottleneck, also at the train CLI's layer maps; the probes P1-P5) to their
 plain PyTorch versions on the card, and the pipeline on the card (float,
 and int8_static + K2) to the pipeline on the CPU; the HTTP server on the
 card coalesces two concurrent requests into one forward; the data
-pipeline's ``DevicePrefetcher`` gives the batches a synchronous copy gives.
+pipeline's ``DevicePrefetcher`` gives the batches a synchronous copy gives;
+the profiler's trace holds the card's kernels.
 This file imports
 nothing of JAX, so it also runs on a machine with only PyTorch:
 
@@ -798,3 +799,21 @@ def test_one_rank_nccl_pipeline_matches_the_sequential_encoder(tmp_path):
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
     for g, w in zip([x.grad] + [p.grad for p in enc.parameters()], want):
         torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+
+
+def test_maybe_profile_traces_the_cards_kernels(tmp_path):
+    """On the card ``maybe_profile`` records CUDA activities: its Chrome
+    trace holds the kernel events of a matmul."""
+    require_cuda()
+    import json
+    import os
+
+    from tubedetr_tpu_torch.utils.misc import maybe_profile
+
+    x = torch.randn(512, 512, device="cuda")
+    with maybe_profile(str(tmp_path)):
+        (x @ x).sum().item()
+    (name,) = [f for f in os.listdir(tmp_path) if f.endswith(".pt.trace.json")]
+    with open(tmp_path / name) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)

@@ -153,6 +153,17 @@ def data_axis(weights, one_process, ranks):
     return R.cfg_of(), one_process[0], [r["data"] for r in ranks], weights[2]
 
 
+def test_recalibration_holds_the_maximum_over_the_ranks(ranks):
+    """Two ranks whose videos give different activation maxima: after
+    ``recalibrate`` both hold the elementwise maximum of what they observed
+    (written after the max-reduce, so no rank's larger maximum is lost)."""
+    a, b = (r["recalibrate"] for r in ranks)
+    assert set(a["observed"]) == set(b["observed"]) == set(a["held"])
+    assert any(a["observed"][k] != b["observed"][k] for k in a["observed"])
+    want = {k: max(a["observed"][k], b["observed"][k]) for k in a["observed"]}
+    assert a["held"] == b["held"] == want
+
+
 @pytest.mark.parametrize("name", ["ddp", "accum", "zero", "fsdp"])
 def test_data_parallel_step_matches_one_process(data_axis, name):
     cfg, ref, ranks, _ = data_axis

@@ -139,7 +139,7 @@ def test_unfused_block_matches_jax(case, mode, dtype):
             {k: variables[k] for k in ("params", "buffers")}, jx, mutable=["qscales"]
         )
 
-    tb = Bottleneck(cin, planes, stride, 1, downsample, quant=mode).eval()
+    tb = Bottleneck(cin, planes, stride, 1, downsample, observers=True).eval()
     sd = {k.lstrip("."): v for k, v in _bottleneck(variables["params"], variables["buffers"], "").items()}
     tb.load_state_dict({k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in sd.items()})
     names = {"conv2.act_max": qs["conv2"]["act_max"], "conv3.act_max": qs["conv3"]["act_max"],

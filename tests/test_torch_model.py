@@ -178,17 +178,30 @@ def test_load_reference_pth_prefers_ema_and_truncates_queries(tmp_path):
 
 
 def test_config_rejects_what_the_port_does_not_run():
-    for kw in (dict(backbone_quant="int8_qat"), dict(backbone_quant_fast="int8_static"),
-               dict(backbone_quant_frozen="int8_static"), dict(log_quant_drift=True),
-               dict(recalibrate_each_epoch=True), dict(backbone="timm_efficientnet_b3"),
-               dict(backbone="resnet101-gn", backbone_quant="int8_static")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TubeDETRConfig(**kw).validate()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TubeDETRConfig(backbone="timm_efficientnet_b3").validate()
     # the JAX package's own refusals
     with pytest.raises(ValueError, match="no_tsa"):
         TubeDETRConfig(num_queries=2, no_tsa=True).validate()
     with pytest.raises(ValueError, match="remat_policy"):
         TubeDETRConfig(remat_policy="save_all").validate()
+    with pytest.raises(ValueError, match="requires fast"):
+        TubeDETRConfig(backbone_quant_fast="int8", fast=False).validate()
+    with pytest.raises(ValueError, match="backbone_quant_frozen"):
+        TubeDETRConfig(backbone_quant_frozen="int8_qat").validate()
+    with pytest.raises(NotImplementedError, match="resnet family"):
+        TubeDETRConfig(backbone="timm_efficientnet_b3", backbone_quant_frozen="int8").validate()
+    # the quantized training passes (and their drift and recalibration) and
+    # the GroupNorm trunks under every int8 mode run
+    for kw in (dict(backbone_quant="int8_qat"), dict(backbone_quant_fast="int8_static"),
+               dict(backbone_quant_fast="int8"), dict(backbone_quant_frozen="int8_static"),
+               dict(backbone_quant_frozen="int8", backbone_quant="int8_qat"),
+               dict(log_quant_drift=True, backbone_quant="int8_qat"),
+               dict(recalibrate_each_epoch=True, backbone_quant_fast="int8_static"),
+               dict(backbone="resnet101-gn", backbone_quant="int8_qat")):
+        TubeDETRConfig(**kw).validate_training()
+    TubeDETRConfig(backbone="resnet101-gn", backbone_quant="int8_static",
+                   fused_bottleneck=True).validate()
     # the fast_mode variants, num_queries > 1, the model flags, the GroupNorm
     # trunks, the remat policies and bfloat16 training run
     for kw in (dict(fast_mode="gating"), dict(fast_mode="noslow"), dict(num_queries=2),

@@ -180,7 +180,8 @@ def test_new_int8_modules_are_scanned():
                 "data/datasets.py", "data/loader.py", "data/preproc.py", "data/transforms.py",
                 "data/decode.py", "data/collate.py", "apps/train.py", "utils/misc.py",
                 "parallel/dist.py", "parallel/mesh.py", "parallel/tp.py", "core/sharding.py",
-                "parallel/pp.py", "parallel/collectives.py"):
+                "parallel/pp.py", "parallel/collectives.py", "models/resnet.py",
+                "models/tubedetr.py"):
         assert os.path.join("tubedetr_tpu_torch", mod) in names
 
 

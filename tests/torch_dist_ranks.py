@@ -297,10 +297,36 @@ def data_axis_ranks(rank, world, weights, tmp):
 
 
 def all_ranks(rank, world, weights, tmp, qscales, inputs):
-    """``data_axis_ranks`` and ``time_axis_ranks`` in one spawn (a process's
-    start costs seconds): two meshes over one process group."""
+    """``data_axis_ranks``, ``time_axis_ranks`` and ``recalibrate_ranks`` in
+    one spawn (a process's start costs seconds): two meshes over one
+    process group."""
     return {"data": data_axis_ranks(rank, world, weights, tmp),
-            "time": time_axis_ranks(rank, world, weights, qscales, inputs)}
+            "time": time_axis_ranks(rank, world, weights, qscales, inputs),
+            "recalibrate": recalibrate_ranks(rank, world, weights, qscales)}
+
+
+def recalibrate_ranks(rank, world, weights, qscales):
+    """The per-epoch recalibration of a QAT model (``qscales`` baked): each
+    rank's drift probe observes its own video, then ``recalibrate`` writes
+    the maxima over the ranks. Returns what the rank observed and what its
+    observers hold after."""
+    from tubedetr_tpu_torch.models.quantize import (
+        make_drift_checker,
+        model_qscales,
+        recalibrate,
+        set_model_qscales,
+    )
+    from tubedetr_tpu_torch.parallel.train_step import model_inputs
+
+    cfg = cfg_of(backbone_quant="int8_qat")
+    model = model_from(weights, cfg)
+    set_model_qscales(model, qscales)
+    half = len(VIDEOS) // world
+    inputs = model_inputs(batch_of(VIDEOS[rank * half:(rank + 1) * half]))
+    ratio, leaf, observed = make_drift_checker(cfg)(model, inputs)
+    recalibrate(cfg, model, observed)
+    return {"observed": {k: float(v) for k, v in observed.items()},
+            "held": {k: float(v) for k, v in model_qscales(model).items()}, "ratio": ratio}
 
 
 def time_axis_ranks(rank, world, weights, qscales, inputs):

@@ -166,8 +166,8 @@ def get_args_parser() -> argparse.ArgumentParser:
                    choices=["none", "int8", "int8_static", "int8_qat"],
                    help="int8 backbone convs: dynamic scales, static "
                         "calibrated scales (int8_static, inference), or "
-                        "fake-quant QAT (int8_qat, refused by the port's "
-                        "validate() for now)")
+                        "fake-quant QAT (int8_qat: train with it, then deploy "
+                        "the checkpoint int8_static on the same scales)")
     p.add_argument("--backbone_quant_fast", default=d.backbone_quant_fast,
                    choices=["none", "int8", "int8_static"],
                    help="int8 the gradient-free fast-stream backbone pass "

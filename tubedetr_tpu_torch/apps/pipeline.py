@@ -7,7 +7,8 @@ compute dtype, and the bucket padding and collation happen there too. Only
 the masks and tokens are built on the host, and only the outputs come back.
 ``ground_many`` coalesces N requests into one forward at batch N.
 
-An ``int8_static`` backbone calibrates its activation scales on the first
+An ``int8_static`` backbone, and an ``int8_qat`` one (its fake-quant forward
+reads the same scales), calibrates its activation scales on the first
 forward (one observer pass, ``models/quantize.py``) unless a sidecar for this
 config and these weights is in ``cfg.qscales_dir``; a ``reload`` serves with
 the scales its checkpoint carries, or recalibrates the same way.
@@ -38,6 +39,9 @@ from tubedetr_tpu_torch.models.tubedetr import COMPUTE_DTYPES, build_model
 from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize
 from tubedetr_tpu_torch.train.checkpoint import load_checkpoint, load_pretrained
 from tubedetr_tpu_torch.utils.device import configure_precision, resolve_device
+
+# the backbone modes that read calibrated scales
+STATIC_SCALES = ("int8_static", "int8_qat")
 
 
 def draw_box(frame: np.ndarray, box, color=(255, 40, 40), width: int = 3):
@@ -77,7 +81,7 @@ class GroundingPipeline:
         self.tokenizer = build_tokenizer(cfg.tokenizer_path, cfg.text_vocab_size)
         # the port's seeded weights are not the JAX package's: their own tag
         self._weights_tag = f"fabricate-torch-seed{seed}"
-        self._needs_calibration = cfg.backbone_quant == "int8_static"
+        self._needs_calibration = cfg.backbone_quant in STATIC_SCALES
         self.calibration_s = 0.0  # host seconds of the last calibration
         self.qscales_source = None  # "checkpoint", "cache" or "calibrated" once set
         self.forwards = 0  # batched forwards run (``forward`` calls)
@@ -101,12 +105,12 @@ class GroundingPipeline:
             print(f"[load] {len(missing)} tensors kept as they were (e.g. {missing[:5]})")
         self._weights_tag = file_weights_tag(path)
         qscales = ckpt.get("qscales")
-        if self.cfg.backbone_quant == "int8_static" and qscales:
+        if self.cfg.backbone_quant in STATIC_SCALES and qscales:
             set_model_qscales(self.model, qscales)
             self._needs_calibration, self.qscales_source = False, "checkpoint"
             print("[quant] int8 scales from the checkpoint")
         else:
-            self._needs_calibration = self.cfg.backbone_quant == "int8_static"
+            self._needs_calibration = self.cfg.backbone_quant in STATIC_SCALES
             self.qscales_source = None
         return path
 

@@ -40,6 +40,19 @@ An int8 backbone (``--backbone_quant int8_static``, with K2 through a
 ``--dataset_config`` overlay setting ``fused_bottleneck``) runs for
 evaluation only: its scales are calibrated on the first val batch (with the
 EMA weights under ``--ema``) or read from a sidecar in ``--qscales_dir``.
+
+Quantized training, as the JAX CLI runs it: ``--backbone_quant int8_qat``
+(fake-quant with straight-through gradients; its scales are the eval
+calibration's, and the checkpoints carry them for an ``int8_static``
+deployment), ``--backbone_quant_fast`` (the gradient-free fast pass in int8)
+and ``--backbone_quant_frozen`` (the frozen stem and layer1 of the slow
+pass in int8): ``int8_static`` calibrates on one train batch unless the
+eval calibration or a sidecar serves, dynamic ``int8`` needs no scales. The
+scales are the trunk's observer buffers, which every pass, the evaluation
+and the checkpoint read. ``--log_quant_drift`` prints each epoch's worst
+observed/baked activation-max ratio (one observer forward on a fresh train
+batch); ``--recalibrate_each_epoch`` also writes the observed maxima, the
+maximum over the ranks, as the new scales.
 """
 
 from __future__ import annotations
@@ -166,9 +179,10 @@ def main(argv=None, stats: Optional[RunStats] = None) -> int:
     if cfg.backbone_quant in ("int8", "int8_static") and not cfg.evaluate_only:
         raise NotImplementedError(
             "--backbone_quant int8/int8_static trains nothing (zero gradients through "
-            "round()); use it with --eval, or in the demo and serving paths. Quantized "
-            "training (int8_qat, --backbone_quant_fast/--backbone_quant_frozen) comes with "
-            "ROADMAP queue 1 'Secondary features'"
+            "round()); use it with --eval, or in the demo and serving paths. To train "
+            "quantized use --backbone_quant int8_qat (fake-quant with straight-through "
+            "gradients), or quantize only the gradient-free passes with "
+            "--backbone_quant_fast/--backbone_quant_frozen int8_static"
         )
     distributed = tdist.init_distributed_mode(cfg.device)
     try:
@@ -190,7 +204,13 @@ def _run(cfg, stats: Optional[RunStats], distributed: bool) -> int:
         EpochChunkView,
     )
     from tubedetr_tpu_torch.eval.viou import VIoUEvaluator
-    from tubedetr_tpu_torch.models.quantize import get_or_calibrate_qscales, weights_tag_for
+    from tubedetr_tpu_torch.models.quantize import (
+        get_or_calibrate_qscales,
+        make_drift_checker,
+        model_qscales,
+        recalibrate,
+        weights_tag_for,
+    )
     from tubedetr_tpu_torch.models.tokenizer import build_tokenizer
     from tubedetr_tpu_torch.models.tubedetr import build_model
     from tubedetr_tpu_torch.parallel import dist as tdist
@@ -349,6 +369,28 @@ def _run(cfg, stats: Optional[RunStats], distributed: bool) -> int:
 
     steps_per_epoch = len(make_train_loader(train_base))
     num_training_steps = steps_per_epoch * cfg.epochs
+
+    def train_inputs():
+        """The model inputs of the first batch of a fresh train loader."""
+        batch, _ = next(iter(make_train_loader(train_base)))
+        return model_inputs(to_device(batch, device))
+
+    quant_train = (cfg.backbone_quant_fast != "none" or cfg.backbone_quant_frozen != "none"
+                   or cfg.backbone_quant == "int8_qat")
+    if quant_train and cfg.backbone_quant != "none":
+        # one observer tree serves every pass: the eval calibration's
+        print("[quant] training scales reuse the eval calibration")
+    elif quant_train and "int8_static" in (cfg.backbone_quant_fast, cfg.backbone_quant_frozen):
+        _, source = get_or_calibrate_qscales(
+            cfg, model, train_inputs(), cache_dir=cfg.qscales_dir, force=cfg.calibrate,
+            weights_tag=weights_tag_for(cfg, default=f"init-torch-seed{cfg.seed}"),
+            data_tag="train:" + ",".join(cfg.combine_datasets),
+        )
+        print(f"[quant] backbone_quant_fast/frozen scales {source} (one train batch)")
+    # dynamic int8 passes compute their scales a forward: the zeros stand
+    drift_checker = (make_drift_checker(cfg)
+                     if quant_train and (cfg.log_quant_drift or cfg.recalibrate_each_epoch)
+                     else None)
     train_step = make_train_step(cfg)
     writer = None
     if cfg.tb_dir and main_rank:
@@ -382,8 +424,21 @@ def _run(cfg, stats: Optional[RunStats], distributed: bool) -> int:
                 state, train_stats = train_one_epoch(cfg, train_step, state,
                                                      TimedFeed(feed(loader), stats), epoch,
                                                      num_training_steps, writer)
+            if drift_checker is not None:
+                # one observer forward on a fresh train batch: how far the
+                # activations have moved past the baked scales
+                ratio, leaf, observed = drift_checker(model, train_inputs())
+                print(f"[quant] epoch {epoch} activation drift: worst observed/baked = "
+                      f"{ratio:.3f} at {leaf}" + (" (baked scale now clips)" if ratio > 1.0 else ""))
+                if cfg.recalibrate_each_epoch:
+                    # every pass, the evaluation and the checkpoint read the observers
+                    recalibrate(cfg, model, observed)
+                    print(f"[quant] epoch {epoch} scales recalibrated")
             if out_dir:  # every rank gathers a sharded state; rank 0 writes
-                payload = checkpoint_payload(state, epoch, cfg)
+                # the inference scales travel with the weights, so a reload
+                # serves int8 without an observer pass
+                payload = checkpoint_payload(state, epoch, cfg, qscales=(
+                    model_qscales(model) if cfg.backbone_quant != "none" else None))
                 save(out_dir / "checkpoint.pth", payload)
                 if ((epoch + 1) % 2 == 0 or epoch + 1 == cfg.lr_drop
                         or "vidstg" in cfg.combine_datasets):

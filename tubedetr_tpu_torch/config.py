@@ -11,17 +11,19 @@ yet, naming the ROADMAP item that will bring each, so none passes unread
 a world size that ``mesh_time * mesh_model`` does not divide is refused by
 ``parallel/mesh.py:mesh_shape``). The
 int8 backbone modes ``int8`` and ``int8_static`` (with or without ``fused_bottleneck``) run on
-the frozen-BN ResNets; every ``fast_mode``, ``num_queries > 1``, both
+the ResNets; every ``fast_mode``, ``num_queries > 1``, both
 compute dtypes (training included), the sine (``sine``, ``v2``) and learned
 (``learned``, ``v3``) position embeddings, ``no_tsa``, ``learn_time_embed``,
 ``no_time_embed``, the GroupNorm trunks (``resnet*-gn``) and every
 ``remat_policy`` run, and ``validate()`` accepts and refuses those fields
 as the JAX package's does, the training fields (schedule, optimizer,
-``grad_accum``) included. Still refused: ``int8_qat``, the quantized
-training passes and their drift and recalibration flags, a GroupNorm trunk
-under an int8 ``backbone_quant`` (ROADMAP item 16d), and the timm families
-(item 16f). ``validate_training`` adds what the JAX package refuses for
-training.
+``grad_accum``) included. The quantized training passes run too:
+``int8_qat`` (fake-quant with straight-through gradients),
+``backbone_quant_fast`` and ``backbone_quant_frozen`` in ``int8`` and
+``int8_static``, ``log_quant_drift`` and ``recalibrate_each_epoch``, and
+every int8 mode on the GroupNorm trunks. Still refused: the timm families
+(ROADMAP item 16f). ``validate_training`` adds what the JAX package refuses
+for training.
 ``apply_json_overlay`` is the CLI's ``--dataset_config``.
 """
 
@@ -233,31 +235,20 @@ class TubeDETRConfig:
             raise ValueError(f"unknown backbone_quant {self.backbone_quant!r}")
         if self.fused_bottleneck and self.backbone_quant not in ("int8", "int8_static"):
             raise ValueError("fused_bottleneck requires an int8 backbone_quant mode")
-        # settings the port does not run yet, each with its ROADMAP item
-        if (
-            self.backbone_quant == "int8_qat"
-            or self.backbone_quant_fast != "none"
-            or self.backbone_quant_frozen != "none"
-        ):
-            raise NotImplementedError(
-                f"backbone_quant={self.backbone_quant!r}, backbone_quant_fast="
-                f"{self.backbone_quant_fast!r}, backbone_quant_frozen="
-                f"{self.backbone_quant_frozen!r}: int8_qat and the quantized "
-                "training passes come with ROADMAP queue 1 'Secondary features', item "
-                "16d (the quantized training passes)"
-            )
+        for name in ("backbone_quant_fast", "backbone_quant_frozen"):
+            if getattr(self, name) not in ("none", "int8", "int8_static"):
+                raise ValueError(f"unknown {name} {getattr(self, name)!r}")
+        if self.backbone_quant_fast != "none" and not self.fast:
+            raise ValueError("backbone_quant_fast requires fast=True")
+        if self.backbone_quant_frozen != "none" and self.backbone.startswith("timm_"):
+            # the timm families have no always-frozen prefix
+            raise NotImplementedError("backbone_quant_frozen applies to the resnet family only")
         if self.mesh_data < 1 and self.mesh_data != -1:
             raise ValueError(f"mesh_data must be >= 1 (or -1: every rank), got {self.mesh_data}")
         if self.mesh_time < 1:
             raise ValueError(f"mesh_time must be >= 1, got {self.mesh_time}")
         if self.mesh_model < 1:
             raise ValueError(f"mesh_model must be >= 1, got {self.mesh_model}")
-        if self.log_quant_drift or self.recalibrate_each_epoch:
-            raise NotImplementedError(
-                "--log_quant_drift and --recalibrate_each_epoch act on the quantized "
-                "training passes, which come with ROADMAP queue 1 'Secondary "
-                "features', item 16d (the quantized training passes)"
-            )
         if self.position_embedding not in ("sine", "learned", "v2", "v3"):
             raise ValueError(f"unknown position_embedding {self.position_embedding!r}")
         if self.remat_policy not in REMAT_POLICIES:
@@ -268,12 +259,6 @@ class TubeDETRConfig:
             raise NotImplementedError(
                 f"backbone {self.backbone!r}: the timm families come with ROADMAP "
                 "queue 1 'Secondary features', item 16f (the timm families)"
-            )
-        if self.backbone.endswith("-gn") and self.backbone_quant != "none":
-            raise NotImplementedError(
-                f"backbone {self.backbone!r} with backbone_quant={self.backbone_quant!r}: "
-                "the int8 GroupNorm trunk comes with ROADMAP queue 1 'Secondary "
-                "features', item 16d (the quantized training passes)"
             )
         return self
 

@@ -1,8 +1,12 @@
-"""PTQ calibration and qscales sidecars (counterpart of ``tubedetr_tpu/models/quantize.py``).
+"""PTQ calibration, drift, and qscales sidecars (counterpart of ``tubedetr_tpu/models/quantize.py``).
 
-Calibration runs the int8_static model as its dynamic-observer twin
-(``calibration_cfg``: ``backbone_quant="int8"``) for one forward and keeps
-the activation maxima the observers recorded. The scales persist in a
+Calibration runs the model as its dynamic-observer twin (``calibration_cfg``:
+each int8 mode becomes ``"int8"``, and a quantized fast pass or frozen
+prefix forces the two-pass forward that runs them) for one forward and
+keeps the activation maxima the observers recorded, the maximum over the
+ranks. ``make_drift_checker`` runs the same forward and reports how far the
+observed maxima have moved past the baked ones; ``recalibrate`` writes
+them, max-reduced first. The scales persist in a
 sidecar ``.npz`` keyed by the quantization-relevant config slice plus a
 weights tag; the key and the file format (the flax ``qscales`` tree,
 flattened with ``/``) are the JAX package's, so a sidecar written by either
@@ -24,56 +28,112 @@ from tubedetr_tpu_torch.interop.from_jax import (
     qscales_from_jax,
     qscales_to_flax,
 )
-from tubedetr_tpu_torch.parallel.dist import (
-    all_agree,
-    allreduce_max,
-    is_dist_initialized,
-    is_main_process,
-)
+from tubedetr_tpu_torch.parallel.dist import all_agree, allreduce_max, is_main_process
 
 
 def calibration_cfg(cfg):
     """The dynamic-observer twin of ``cfg``: int8 modes become "int8"
-    (observe + dynamic scales). The JAX package also turns a quantized fast
-    pass or frozen prefix into its observer twin; those are training options
-    the port does not run yet (``TubeDETRConfig.validate``)."""
-    return cfg.replace(backbone_quant="int8") if cfg.backbone_quant != "none" else cfg
+    (observe + dynamic scales) and, when the fast pass or the frozen prefix
+    is quantized, the two-pass forward is forced so that it runs."""
+    out = cfg
+    if cfg.backbone_quant != "none":
+        out = out.replace(backbone_quant="int8")
+    if cfg.backbone_quant_fast != "none":
+        out = out.replace(backbone_quant_fast="int8", share_backbone_inference=False)
+    if cfg.backbone_quant_frozen != "none":
+        # the frozen-prefix observers live in the two-pass slow pathway
+        out = out.replace(backbone_quant_frozen="int8", share_backbone_inference=False)
+    return out
 
 
 def model_qscales(model: torch.nn.Module) -> Dict[str, np.ndarray]:
-    """The model's observer buffers by name, as numpy f32 scalars."""
+    """The model's observer buffers by name, as numpy f32 scalars (copies)."""
     body = model.backbone[0].body
-    return {k: v.detach().float().cpu().numpy() for k, v in body.qscales(BACKBONE_PREFIX).items()}
+    return {k: v.detach().float().cpu().numpy().copy()
+            for k, v in body.qscales(BACKBONE_PREFIX).items()}
 
 
 def set_model_qscales(model: torch.nn.Module, flat: Dict) -> None:
+    """Set the observers from ``flat`` (names as ``model_qscales`` gives
+    them; the key sets must match)."""
     model.backbone[0].body.load_qscales(flat, BACKBONE_PREFIX)
 
 
 @torch.inference_mode()
+def observe_qscales(cfg, model: torch.nn.Module, inputs: Dict) -> Dict[str, torch.Tensor]:
+    """One observer forward of ``model`` (``calibration_cfg``'s twin: the
+    model's config is swapped for the call) on ``inputs``; returns the
+    maxima it recorded by buffer name (host float32 tensors), this rank's
+    alone, and leaves them in the observers. The forward runs every frame on each rank
+    (``time_group`` off): the observer twin quantizes with dynamic scales,
+    which a share of the frames would change."""
+    body = model.backbone[0].body
+    if not body.observers:
+        raise ValueError(
+            f"backbone {cfg.backbone!r} recorded no quantization observers (no int8 path)"
+        )
+    ccfg = calibration_cfg(cfg)
+    saved = model.cfg, model.time_group
+    model.cfg, model.time_group = ccfg, None
+    try:
+        with body.calibrating(ccfg.backbone_quant):
+            model(**inputs)
+    finally:
+        model.cfg, model.time_group = saved
+    return {k: v.detach().float().cpu().clone() for k, v in body.qscales(BACKBONE_PREFIX).items()}
+
+
 def calibrate_qscales(cfg, model: torch.nn.Module, inputs: Dict) -> Dict:
     """One observer forward of ``model`` on ``inputs`` -> the flax
     ``qscales`` tree (layout per ``cfg.scan_backbone_blocks``). The model's
     observer buffers keep the recorded maxima. Across processes each rank
     observes its own batch and the maxima are the ranks' maximum
     (``allreduce_max``, the JAX package's ``allreduce_max_tree``), so every
-    rank bakes the same int8 trunk. The forward runs every frame on each
-    rank (``time_group`` off): the observer twin quantizes with dynamic
-    scales, which a share of the frames would change."""
-    body = model.backbone[0].body
-    if body.quant == "none":
-        raise ValueError(
-            f"backbone {cfg.backbone!r} recorded no quantization observers (no int8 path)"
-        )
-    time_group, model.time_group = model.time_group, None
-    try:
-        with body.calibrating(calibration_cfg(cfg).backbone_quant):
-            model(**inputs)
-    finally:
-        model.time_group = time_group
-    if is_dist_initialized():
-        body.load_qscales(allreduce_max(body.qscales(BACKBONE_PREFIX)), BACKBONE_PREFIX)
+    rank bakes the same int8 trunk."""
+    return recalibrate(cfg, model, observe_qscales(cfg, model, inputs))
+
+
+def recalibrate(cfg, model: torch.nn.Module, observed: Dict) -> Dict:
+    """Write ``observed`` (a rank's own maxima by buffer name) into the
+    observers as the maximum over the ranks, so that every rank holds the
+    same scales (DDP broadcasts no buffer, and a broadcast from rank 0 would
+    drop another rank's larger maximum). Returns the flax ``qscales``
+    tree."""
+    set_model_qscales(model, allreduce_max(dict(observed)))
     return qscales_to_flax(model_qscales(model), cfg.scan_backbone_blocks)
+
+
+def make_drift_checker(cfg):
+    """A drift probe for the quantized training passes: the trainable
+    layers move, so scales baked at step 0 can under-cover later epochs.
+    ``check(model, inputs)`` runs one observer forward and returns the
+    worst observed/baked activation-max ratio over the flax tree's leaves
+    (a stacked leaf by its maximum), that leaf's path, and the observed
+    maxima by buffer name (this rank's, not max-reduced: ``recalibrate``
+    bakes them). The baked scales are the ones the observers hold, and they
+    hold them again afterwards. A ratio above 1 means that a baked scale
+    now clips."""
+    scanned = cfg.scan_backbone_blocks
+
+    def check(model: torch.nn.Module, inputs: Dict):
+        held = model_qscales(model)
+        try:
+            observed = observe_qscales(cfg, model, inputs)
+        finally:
+            set_model_qscales(model, held)
+        flat_o = _flatten(qscales_to_flax({k: v.numpy() for k, v in observed.items()}, scanned))
+        flat_b = _flatten(qscales_to_flax(held, scanned))
+        worst, worst_key = 0.0, ""
+        for k, o in flat_o.items():
+            b = float(np.max(flat_b.get(k, np.zeros(1))))
+            if b <= 0:
+                continue
+            r = float(np.max(o)) / b
+            if r > worst:
+                worst, worst_key = r, k
+        return worst, worst_key, observed
+
+    return check
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,24 @@ bottleneck convs run s8 x s8 -> s32 on per-out-channel int8 weights
 (``ops/int8_conv.py``), and the residual stream between blocks is carried as
 ``(int8 NHWC tensor, f32 scale)``. The stem stays float; it is quantized with
 ``stem_act_max`` after the max pool. With ``fused_blocks`` the int8_static
-stride-1 tail blocks run as one K2 launch each (``ops/fused_bottleneck.py``).
+stride-1 tail blocks of a FrozenBN trunk run as one K2 launch each
+(``ops/fused_bottleneck.py``); a GroupNorm trunk's int8 blocks stay unfused.
+
+``quant="int8_qat"``: the training twin of int8_static, on the same scales
+and observers. Every bottleneck conv is a float conv in ``dtype`` on a
+fake-quantized input and a fake-quantized weight (per out-channel), with
+straight-through gradients (``x + (q - x).detach()``); the stem's output is
+fake-quantized before the max pool, and each block's output with its
+``out_max``, so the residual stream is a float tensor on the int8 grid, which
+conv1 and the downsample read as it is.
+
+``forward(x, quant=..., frozen_prefix_quant=...)`` runs one call in another
+mode on the same weights: the training fast pass (the whole trunk int8) and
+the training slow pass (the always-frozen stem and layer1 int8, the int8
+carrier dequantized once at layer2, where a QAT stage takes it as its
+carrier). Which observers a trunk holds (``observers``) is the JAX package's
+``qscales`` tree of its config: every one when any pass may run int8, the
+stem's and layer1's alone for a float trunk whose frozen prefix alone does.
 For training, the stem and layer1 are always frozen (``requires_grad``
 off, as the reference's backbone freezes them); with ``remat`` each block
 that holds a trainable weight runs under ``torch.utils.checkpoint`` while
@@ -42,7 +59,7 @@ from __future__ import annotations
 
 from contextlib import contextmanager
 from functools import partial
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -62,8 +79,11 @@ from tubedetr_tpu_torch.ops.fused_bottleneck import (
 from tubedetr_tpu_torch.ops.int8_conv import conv2d_int8
 
 BN_EPS = 1e-5
-QUANT_MODES = ("none", "int8", "int8_static")
+INT8_MODES = ("int8", "int8_static")
+QUANT_MODES = ("none", *INT8_MODES, "int8_qat")
 OBSERVERS = ("act_max", "out_max", "stem_act_max")
+# which observers a trunk holds: none, the stem's and layer1's, every one
+OBSERVER_SETS = ("", "prefix", "all")
 
 STAGE_BLOCKS = {
     "resnet14": (1, 1, 1, 1),  # tiny test arch (not in torchvision)
@@ -95,6 +115,16 @@ class Conv2d(nn.Conv2d):
         dt = self.compute_dtype
         return self._conv_forward(x.to(dt), self.weight.to(dt),
                                   None if self.bias is None else self.bias.to(dt))
+
+    def forward_qat(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv on ``x`` (already on the int8 grid) with the weight
+        fake-quantized per out-channel: the scale ``max|w| / 127`` carries
+        no gradient, the rounding a straight-through one."""
+        w = self.weight
+        sw = (torch.clamp_min(w.detach().abs().amax(dim=(1, 2, 3)), 1e-12) / 127.0)[:, None, None, None]
+        wq = torch.clamp(torch.round(w / sw), -127, 127) * sw
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), (w + (wq - w).detach()).to(dt), None)
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -139,6 +169,9 @@ class GroupNorm(nn.GroupNorm):
         return F.group_norm(x.float(), self.num_groups, self.weight.float(), self.bias.float(),
                             self.eps).to(self.compute_dtype)
 
+    def channels_last(self, x: torch.Tensor) -> torch.Tensor:  # (N, H, W, C)
+        return self(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
 
 def make_norm(norm: str, n: int, dtype: torch.dtype) -> nn.Module:
     return GroupNorm(n, dtype) if norm == "gn" else FrozenBatchNorm2d(n)
@@ -163,6 +196,15 @@ def _keep_convs(kept) -> tuple:
 
 def _observer(module: nn.Module, name: str = "act_max") -> None:
     module.register_buffer(name, torch.zeros(()), persistent=False)
+
+
+def fake_quant(x: torch.Tensor, act_max: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32 rounded onto the int8 grid of the calibrated
+    ``act_max`` (per tensor), with a straight-through gradient."""
+    xf = x.float()
+    s = torch.clamp_min(act_max, 1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / s), -127, 127) * s
+    return xf + (q - xf).detach()
 
 
 def quantize_act(x: torch.Tensor, act_max: torch.Tensor, mode: str, observe: bool):
@@ -220,7 +262,7 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 dilation: int = 1, downsample: bool = False, quant: str = "none",
+                 dilation: int = 1, downsample: bool = False, observers: bool = False,
                  fused: bool = False, norm: str = "frozen_bn",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -239,9 +281,10 @@ class Bottleneck(nn.Module):
             if downsample
             else None
         )
-        self.stride, self.dilation, self.fused = stride, dilation, fused
+        self.stride, self.dilation, self.norm = stride, dilation, norm
+        self.fused = fused and norm == "frozen_bn"  # K2 folds FrozenBN only
         self._fold = None
-        if quant != "none":  # conv1 and the downsample read the int8 stream as it is
+        if observers:  # conv1 and the downsample read the int8 stream as it is
             _observer(self.conv2)
             _observer(self.conv3)
             _observer(self, "out_max")
@@ -252,6 +295,22 @@ class Bottleneck(nn.Module):
         out = self.bn3(self.conv3(out))
         identity = x if self.downsample is None else self.downsample(x)
         return F.relu(out + identity)
+
+    def forward_qat(self, x: torch.Tensor) -> torch.Tensor:
+        """The fake-quant block on a carrier already on the int8 grid (NCHW,
+        ``dtype``): conv1 and the downsample read it as it is, conv2 and
+        conv3 fake-quantize their inputs with their ``act_max``, and the
+        output is fake-quantized with ``out_max``."""
+        out = F.relu(self.bn1(self.conv1.forward_qat(x)))
+        out = F.relu(self.bn2(self.conv2.forward_qat(fake_quant(out, self.conv2.act_max))))
+        out = self.bn3(self.conv3.forward_qat(fake_quant(out, self.conv3.act_max)))
+        if self.downsample is None:
+            identity = x
+        else:
+            conv, bn = self.downsample
+            identity = bn(conv.forward_qat(x))
+        out = F.relu(out + identity)
+        return fake_quant(out, self.out_max).to(out.dtype)
 
     def forward_int8(self, xq: torch.Tensor, sx: torch.Tensor, dtype, mode: str,
                      observe: bool = False):
@@ -291,7 +350,8 @@ class ResNet(nn.Module):
 
     def __init__(self, arch: str = "resnet101", dilation: bool = False,
                  quant: str = "none", fused_blocks: bool = False, remat: bool = False,
-                 remat_policy: str = "full", dtype: torch.dtype = torch.float32):
+                 remat_policy: str = "full", dtype: torch.dtype = torch.float32,
+                 observers: Optional[str] = None):
         super().__init__()
         base, norm = parse_backbone_name(arch)
         if base not in STAGE_BLOCKS:
@@ -299,18 +359,21 @@ class ResNet(nn.Module):
                                       " (each also with -gn)")
         if quant not in QUANT_MODES:
             raise NotImplementedError(f"quant {quant!r}; expected one of {QUANT_MODES}")
-        if quant != "none" and norm == "gn":
-            raise NotImplementedError("the int8 trunk runs on FrozenBN; a GroupNorm trunk is float")
+        if observers is None:
+            observers = "all" if quant != "none" else ""
+        if observers not in OBSERVER_SETS or (quant != "none" and observers != "all"):
+            raise ValueError(f"observers {observers!r} for quant {quant!r}; expected one of "
+                             f"{OBSERVER_SETS}, 'all' for a quantized trunk")
         if remat_policy not in KEPT_CONVS:
             raise NotImplementedError(f"remat_policy {remat_policy!r}; expected one of "
                                       f"{sorted(KEPT_CONVS)}")
-        self.quant = quant
+        self.quant, self.observers = quant, observers
         self.remat = remat
         self.kept_convs = KEPT_CONVS[remat_policy]
         self.observe = False  # int8: record activation maxima (calibration)
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False, dtype=dtype)
         self.bn1 = make_norm(norm, 64, dtype)
-        if quant != "none":
+        if observers:
             _observer(self, "stem_act_max")
         inplanes, cur_dilation = 64, 1
         for i, (planes, n_blocks) in enumerate(zip((64, 128, 256, 512), STAGE_BLOCKS[base])):
@@ -319,12 +382,13 @@ class ResNet(nn.Module):
             if i == 3 and dilation:
                 cur_dilation *= stride
                 stride = 1
+            observed = observers == "all" or (observers == "prefix" and i == 0)
             blocks = [Bottleneck(inplanes, planes, stride, prev_dilation, downsample=True,
-                                 quant=quant, norm=norm, dtype=dtype)]
+                                 observers=observed, norm=norm, dtype=dtype)]
             inplanes = planes * 4
             blocks += [
-                Bottleneck(inplanes, planes, 1, cur_dilation, quant=quant, fused=fused_blocks,
-                           norm=norm, dtype=dtype)
+                Bottleneck(inplanes, planes, 1, cur_dilation, observers=observed,
+                           fused=fused_blocks, norm=norm, dtype=dtype)
                 for _ in range(1, n_blocks)
             ]
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
@@ -336,36 +400,72 @@ class ResNet(nn.Module):
         for i in (1, 2, 3, 4):
             yield from getattr(self, f"layer{i}")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, 3) NHWC -> (N, h, w, 2048) NHWC."""
+    def _run(self, block: Bottleneck, fn, x):
+        """``fn(x)`` of ``block``, under ``torch.utils.checkpoint`` with
+        ``remat`` while gradients are on and the block trains."""
+        if self.remat and torch.is_grad_enabled() and block.conv1.weight.requires_grad:
+            context = partial(_keep_convs, self.kept_convs) if self.kept_convs else None
+            return checkpoint(fn, x, use_reentrant=False,
+                              **({"context_fn": context} if context else {}))
+        return fn(x)
+
+    def forward(self, x: torch.Tensor, quant: Optional[str] = None,
+                frozen_prefix_quant: Optional[str] = None) -> torch.Tensor:
+        """(N, H, W, 3) NHWC -> (N, h, w, 2048) NHWC, in the trunk's mode or
+        in ``quant`` on the same weights; ``frozen_prefix_quant`` sets the
+        mode of the stem and layer1 alone. An int8 carrier that meets a
+        stage in another mode is dequantized once; a QAT stage takes the
+        dequantized values (on the int8 grid) as its carrier. An int8 stage
+        after a QAT one raises: the fake carrier has no int8 scale."""
+        quant = self.quant if quant is None else quant
+        prefix_q = quant if frozen_prefix_quant is None else frozen_prefix_quant
         x = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory = channels_last
         x = F.relu(self.bn1(self.conv1(x)))
+        dtype = x.dtype
+        if prefix_q == "int8_qat":
+            x = fake_quant(x, self.stem_act_max).to(dtype)
         # max pool in float, then quantize: exact, as the JAX package's
         # quantize-then-pool, since round and clip are monotone and every
         # pixel lies in some 3x3/s2 pad-1 window (same max either side)
         x = F.max_pool2d(x, 3, stride=2, padding=1)
-        if self.quant == "none":
-            for block in self.blocks():
-                if self.remat and torch.is_grad_enabled() and block.conv1.weight.requires_grad:
-                    context = (partial(_keep_convs, self.kept_convs) if self.kept_convs
-                               else None)
-                    x = checkpoint(block, x, use_reentrant=False,
-                                   **({"context_fn": context} if context else {}))
-                else:
-                    x = block(x)
-            return x.permute(0, 2, 3, 1)
-        dtype = x.dtype
-        x = x.permute(0, 2, 3, 1).contiguous()
-        xq, sx = quantize_act(x, self.stem_act_max, self.quant, self.observe)
-        for block in self.blocks():
-            xq, sx = block.forward_int8(xq, sx, dtype, self.quant, self.observe)
-        return (xq.float() * sx).to(dtype)
+        carrier = "fake" if prefix_q == "int8_qat" else "float"
+        if prefix_q in INT8_MODES:
+            x = quantize_act(x.permute(0, 2, 3, 1).contiguous(), self.stem_act_max, prefix_q,
+                             self.observe)
+            carrier = "int8"
+        for i in range(4):
+            stage_q = prefix_q if i == 0 else quant
+            layer = getattr(self, f"layer{i + 1}")
+            if carrier == "int8" and stage_q not in INT8_MODES:
+                xq, sx = x
+                x = (xq.float() * sx).to(dtype).permute(0, 3, 1, 2)
+                carrier = "fake" if stage_q == "int8_qat" else "float"
+            if stage_q in INT8_MODES:
+                if carrier != "int8":
+                    raise NotImplementedError(
+                        f"an int8 stage cannot follow a {carrier} one: no int8 scale to hand over")
+                for block in layer:
+                    x = block.forward_int8(*x, dtype, stage_q, self.observe)
+            elif stage_q == "int8_qat":
+                if carrier != "fake":
+                    raise NotImplementedError("a QAT stage reads a carrier on the int8 grid")
+                for block in layer:
+                    x = self._run(block, block.forward_qat, x)
+            else:
+                carrier = "float"
+                for block in layer:
+                    x = self._run(block, block, x)
+        if carrier == "int8":
+            xq, sx = x
+            return (xq.float() * sx).to(dtype)
+        return x.permute(0, 2, 3, 1)
 
     # -- int8 state -------------------------------------------------------
     def int8_convs(self):
-        """The convs that run on int8 weights (every bottleneck conv), or
-        none for the float trunk: these keep float32 weights."""
-        if self.quant == "none":
+        """The convs that may run on int8 or fake-quantized weights (every
+        bottleneck conv of a trunk with observers), or none for a float
+        trunk: these keep float32 weights, which both are quantized from."""
+        if not self.observers:
             return []
         return [m for b in self.blocks() for m in b.modules() if isinstance(m, nn.Conv2d)]
 
@@ -399,9 +499,11 @@ class ResNet(nn.Module):
 
     @contextmanager
     def calibrating(self, mode: str = "int8"):
-        """Run the dynamic-observer trunk (``mode``) inside: the maxima start
-        at 0 and each forward raises them to what it sees."""
-        if self.quant == "none":
+        """Run the trunk in ``mode`` (its dynamic-observer twin: ``int8``, or
+        ``none`` for a float trunk whose other passes run ``int8``) with the
+        observers on inside: the maxima start at 0 and each int8 forward
+        raises them to what it sees."""
+        if not self.observers:
             raise ValueError("the float trunk has no quantization observers")
         saved = self.quant
         with torch.no_grad():

@@ -19,7 +19,11 @@ separately from ``self.training`` (which switches dropout): the slow pass
 runs the backbone with gradients and the fast pass runs it under
 ``torch.no_grad()``, reusing the detached slow features for every k-th
 frame with ``share_backbone_train``. ``train=False`` shares one backbone
-pass between the streams (``share_backbone_inference``). The stem and
+pass between the streams (``share_backbone_inference``). The fast pass runs
+the trunk in ``backbone_quant_fast`` and the slow pass its stem and layer1
+in ``backbone_quant_frozen`` when those are set, on the same weights and
+observers (the reused every-k-th fast features stay the float slow ones);
+the shared inference pass runs neither. The stem and
 layer1 are always frozen, the whole trunk with ``freeze_backbone`` or
 ``lr_backbone <= 0``, and the text encoder with ``freeze_text_encoder``
 (which also keeps it in eval mode and out of the graph).
@@ -100,7 +104,7 @@ class TubeDETR(nn.Module):
         self.backbone = nn.ModuleList([_Backbone(ResNet(
             cfg.backbone, cfg.dilation, quant=cfg.backbone_quant,
             fused_blocks=cfg.fused_bottleneck, remat=cfg.remat_backbone,
-            remat_policy=cfg.remat_policy, dtype=dtype,
+            remat_policy=cfg.remat_policy, dtype=dtype, observers=trunk_observers(cfg),
         ))])
         self.input_proj = PointwiseConv(2048, d, dtype)
         self.query_embed = nn.Embedding(cfg.num_queries, d)
@@ -171,17 +175,29 @@ class TubeDETR(nn.Module):
                     p.data = p.data.to(self.compute_dtype)
         return self
 
-    def backbone_feats(self, frames: torch.Tensor) -> torch.Tensor:
-        """The trunk over a flat (N, H, W, 3) frame batch -> (N, h, w, 2048).
-        With a ``time_group`` each of its ranks runs the trunk on its share
-        of the N frames and the shares are all-gathered
-        (``core/sharding.py``)."""
+    def pass_modes(self, fast: bool) -> dict:
+        """The trunk's per-call modes of a training pass (``ResNet.forward``'s
+        keywords): the fast pass in ``backbone_quant_fast``, the slow pass
+        with its stem and layer1 in ``backbone_quant_frozen``; none where
+        unset."""
+        cfg = self.cfg
+        if fast:
+            return {"quant": cfg.backbone_quant_fast} if cfg.backbone_quant_fast != "none" else {}
+        if cfg.backbone_quant_frozen != "none":
+            return {"frozen_prefix_quant": cfg.backbone_quant_frozen}
+        return {}
+
+    def backbone_feats(self, frames: torch.Tensor, **modes) -> torch.Tensor:
+        """The trunk over a flat (N, H, W, 3) frame batch -> (N, h, w, 2048),
+        in the per-call ``modes`` (``pass_modes``). With a ``time_group``
+        each of its ranks runs the trunk on its share of the N frames and
+        the shares are all-gathered (``core/sharding.py``)."""
         frames = frames.to(self.compute_dtype)
         if self.time_group is None:
-            return self.backbone[0].body(frames)
+            return self.backbone[0].body(frames, **modes)
         n = frames.shape[0]
-        return gather_frames(self.backbone[0].body(local_frames(frames, self.time_group)), n,
-                             self.time_group)
+        return gather_frames(self.backbone[0].body(local_frames(frames, self.time_group), **modes),
+                             n, self.time_group)
 
     def encode_frames(self, frames: torch.Tensor, pad_mask: torch.Tensor):
         """Backbone + projection over a flat (N, H, W, 3) frame batch
@@ -248,7 +264,7 @@ class TubeDETR(nn.Module):
             src_mask = frame_pad[:, :: cfg.stride][:, :tc]
             pos = fpos.reshape(b, t, hw, d)[:, :: cfg.stride][:, :tc]
         else:  # the slow pass, with gradients into the trunk
-            slow_feats = self.backbone_feats(frames_slow.flatten(0, 1))
+            slow_feats = self.backbone_feats(frames_slow.flatten(0, 1), **self.pass_modes(False))
             src, src_mask, pos = self.project_frames(slow_feats, slow_pad_mask.flatten(0, 1))
             hw = src.shape[1]
             src, src_mask, pos = (
@@ -324,7 +340,7 @@ class TubeDETR(nn.Module):
         b, t = frames_fast.shape[:2]
         k = max(cfg.stride, 1)
         if not (cfg.share_backbone_train and cfg.stride > 0 and tc == -(-t // k)):
-            return self.backbone_feats(frames_fast.flatten(0, 1))
+            return self.backbone_feats(frames_fast.flatten(0, 1), **self.pass_modes(True))
         slow = slow_feats.detach()
         if k == 1:  # the fast stream is the slow stream
             return slow
@@ -332,13 +348,23 @@ class TubeDETR(nn.Module):
         if tc * k > t:
             ff = F.pad(ff, (0, 0, 0, 0, 0, 0, 0, tc * k - t))
         rest = ff.reshape((b, tc, k) + ff.shape[2:])[:, :, 1:].flatten(0, 2)
-        rest = self.backbone_feats(rest)
+        rest = self.backbone_feats(rest, **self.pass_modes(True))
         fh, fw, fc = rest.shape[1:]
         comb = torch.cat(
             [slow.reshape(b, tc, 1, fh, fw, fc).to(rest.dtype), rest.reshape(b, tc, k - 1, fh, fw, fc)],
             dim=2,
         )
         return comb.reshape(b, tc * k, fh, fw, fc)[:, :t].flatten(0, 1)
+
+
+def trunk_observers(cfg: TubeDETRConfig) -> str:
+    """The observers the trunk of ``cfg`` holds, as the JAX package's
+    ``qscales`` tree has them: every one when the trunk or its fast pass
+    may run quantized, the stem's and layer1's when only the frozen prefix
+    does, none for a float model."""
+    if cfg.backbone_quant != "none" or cfg.backbone_quant_fast != "none":
+        return "all"
+    return "prefix" if cfg.backbone_quant_frozen != "none" else ""
 
 
 def build_model(cfg: TubeDETRConfig, device="cuda") -> TubeDETR:

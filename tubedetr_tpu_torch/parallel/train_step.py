@@ -9,7 +9,10 @@ the clip at ``clip_max_norm`` over the parameters that have a gradient, the
 optimizer at the step's per-group LRs, and the EMA. Dropout is on unless
 the step is ``deterministic``, and draws from a generator seeded from the
 dropout seed and the step number. ``TrainStep``'s three phases are public so
-that a caller can time them apart.
+that a caller can time them apart. The quantized training passes
+(``int8_qat``, ``backbone_quant_fast``, ``backbone_quant_frozen``) read
+their scales from the trunk's observer buffers, which calibration and
+``models/quantize.py:recalibrate`` write (the maximum over the ranks).
 
 Across processes (``parallelize``, over a ``parallel/mesh.py`` mesh): the
 model axis (``mesh_model``, ``parallel/tp.py``) cuts the transformer's and
@@ -403,8 +406,9 @@ def parallelize(cfg: TubeDETRConfig, state: TrainState, mesh, tp: Optional[bool]
             print(f"[zero] optimizer state + EMA sharded over data axis ({mesh.data}-way)")
         device = next(model.parameters()).device
         # every trainable parameter gets a gradient in every variant: no
-        # find_unused_parameters; the buffers (FrozenBN statistics, int8
-        # maxima) never change in training: sync_from_rank0 made them equal
+        # find_unused_parameters; the buffers are equal on every rank:
+        # sync_from_rank0 made them so, FrozenBN statistics never change,
+        # and the int8 maxima are written max-reduced (quantize.recalibrate)
         par.ddp = DistributedDataParallel(
             model, device_ids=[device.index] if device.type == "cuda" else None,
             broadcast_buffers=False, process_group=mesh.replica_group)

@@ -10,6 +10,8 @@ the vIoU evaluator.
 Across processes each loop waits at a barrier before its first step (the
 ranks start together) and all-reduces its meters at the end
 (``sync_meters_between_processes``): the stats it returns are the world's.
+With ``TUBEDETR_PROFILE_DIR`` set, the first epoch traces a window of its
+steps (``utils/misc.py:ProfileWindow``).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from tubedetr_tpu_torch.models.postprocess import (
 from tubedetr_tpu_torch.parallel.dist import barrier, sync_meters_between_processes
 from tubedetr_tpu_torch.train.logging import MetricLogger
 from tubedetr_tpu_torch.train.optim import base_lrs, current_lrs
+from tubedetr_tpu_torch.utils.misc import ProfileWindow
 
 
 def train_one_epoch(cfg: TubeDETRConfig, train_step, state, data_loader: Iterable, epoch: int,
@@ -44,8 +47,10 @@ def train_one_epoch(cfg: TubeDETRConfig, train_step, state, data_loader: Iterabl
     weight_dict = loss_weight_dict(cfg)
     header = f"Epoch: [{epoch}]"
     n_steps_per_epoch = getattr(data_loader, "__len__", lambda: None)()
+    profiler = ProfileWindow(enabled=epoch == 0)  # one bounded trace a run
 
     for i, (batch, meta) in enumerate(logger.log_every(data_loader, header)):
+        profiler.step(i)
         curr_step = epoch * (n_steps_per_epoch or 0) + i
         # the reference adjusts the LRs after optimizer.step(): global step g
         # runs at the schedule of step g - 1, step 0 at the base LRs
@@ -70,6 +75,7 @@ def train_one_epoch(cfg: TubeDETRConfig, train_step, state, data_loader: Iterabl
         if writer is not None and i % 100 == 0:
             for k, v in metrics.items():
                 writer.add_scalar(k, float(v), curr_step)
+    profiler.close()  # a window the epoch was too short to fill
     sync_meters_between_processes(logger.meters)
     stats = {k: m.global_avg for k, m in logger.meters.items()}
     return state, stats

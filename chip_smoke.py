@@ -48,6 +48,21 @@ line:
    held to its plain version on the request's frames, K2 29 times a pass
    and exact on the inputs it got); ``resnet101-gn`` at full width in bf16,
    one training step and one serving call;
+7b. the timm trunks (``phase_timm``, ``[timm]``, ``[g1]``,
+   ``[timm-small]``, ``[timm-train]``): EfficientNet-B0, RegNetY-008 and
+   ConvNeXt-T with the headline model's transformer and RoBERTa-base at
+   full width, each in bf16 and in int8_static with ``fused_bottleneck``
+   on (a cold and a warm B=2 ``ground_many``: tubes in range, K1 once a
+   request and held to its plain version on a request's frames, K2 never,
+   G1 ``G1_PER_PASS`` times a trunk pass, calibration included); G1 held
+   exactly to its plain version on every input shape those legs gave it,
+   cut to one request's 200 frames, and timed beside the plain version and
+   a float32 cuDNN grouped conv of the same shape; each family on the small
+   config card against CPU, float and int8_static; one bf16 step of the
+   published training config with each family (every trunk parameter's
+   gradient finite and non-zero, the FrozenBN buffers unchanged), and one
+   float32 ``int8_qat`` + ``backbone_quant_fast int8_static`` step with
+   EfficientNet-B0 (its fast pass: G1 16 launches);
 8. training (``phase_train_small``, ``phase_train``): one small
    dropout-free train step (B=2, ragged durations, fast branch,
    ``grad_accum=2``, AdamW, EMA) card against CPU from the same weights and
@@ -130,7 +145,8 @@ line:
    wrapper's host microseconds a call.
 
 Then the script's seconds, one ``kernels`` JSON line (each kernel's
-``launches`` counted on phase 6's path, and by path: serve, the int8 + K2
+``launches`` counted on phase 6's path, G1's on the int8_static legs of
+phase 7b, and by path: serve, the int8 + K2
 pipeline, train, train in bf16, the model flags' int8 + K2 legs, the CLI's
 int8 eval and its reload request, the quantized training legs and the QAT
 deploy request, and K2's on
@@ -188,6 +204,20 @@ SMALL_INT8_ATOL = {"pred_boxes": 1e-3, "pred_sted": 1e-3}
 # JAX package's QAT-vs-int8_static bound (tests/test_qat.py)
 SMALL_QAT_CORR = 0.999
 SMALL_QAT_ATOL = {"pred_boxes": 5e-3, "pred_sted": 5e-3}
+# a small int8_static timm model card vs CPU: float ops sit between every
+# two int8 convs, so a value one ulp from an int8 rounding boundary flips a
+# step, and the flip moves every quantized conv after it (squeeze-excite
+# gates scale a whole channel). The gate is set from the noise floor
+# measured in the same run: the CPU model against itself with the input of
+# every int8 quantizer moved by at most one float32 ulp (``QuantNoise``),
+# worst of SMALL_TIMM_NOISE_DRAWS draws. Card vs CPU may lie
+# SMALL_TIMM_TRUNK_X times as far in the trunk's 1 - correlation and
+# SMALL_TIMM_HEADS_X times in the boxes' and sted logits' largest
+# differences (a maximum of few elements), never held tighter than
+# SMALL_INT8_ATOL.
+SMALL_TIMM_NOISE_DRAWS = 3
+SMALL_TIMM_TRUNK_X = 2.0
+SMALL_TIMM_HEADS_X = 3.0
 
 # P1-P5, the probes: the scripts' default specs plus both flat variants, at
 # the scripts' full shapes; noshift and convonly again beside K2 at layer3's
@@ -2996,6 +3026,464 @@ def phase_dist(smi: str):
     return got[0]["int8"]["k2_launches"], got[0]["int8_tp"]["k2_launches"]
 
 
+# [timm]: the three timm families at the widths the repo measured on the
+# TPU (README), the trunk of each at full width with the headline model's
+# transformer and RoBERTa-base; G1's launches a trunk pass (the depthwise
+# convs of an EfficientNet-B0, the grouped 3x3 convs of a RegNetY-008)
+TIMM_BACKBONES = ("timm_efficientnet_b0", "timm_regnety_008", "timm_convnext_tiny")
+G1_PER_PASS = {"timm_efficientnet_b0": 16, "timm_regnety_008": 14, "timm_convnext_tiny": 0}
+G1_FRAMES = 200  # one request's frames: G1 is checked and timed at this batch
+# the stems' parameters, which must move in a training step whatever their gradient
+TIMM_STEMS = tuple(f"backbone.0.body.{n}" for n in (
+    "conv_stem.weight", "stem.conv.weight", "stem.0.weight", "stem.0.bias", "stem.1.weight",
+    "stem.1.bias"))
+
+
+class G1Capture:
+    """Inside, the timm trunks' G1 calls go through a wrapper that keeps the
+    first ``G1_FRAMES`` frames of the input and the weights of each distinct
+    call shape, with how many launches of that shape a trunk pass makes (the
+    wrapped function still counts each launch); ``phase_g1`` then holds G1
+    to its plain version on those real inputs and times it."""
+
+    def __init__(self, seen: dict, backbone: str):
+        self.seen, self.backbone = seen, backbone
+
+    def __enter__(self):
+        from tubedetr_tpu_torch.models import resnet
+
+        self.module, self.orig = resnet, resnet.grouped_conv2d_int8
+        self.calls = 0
+
+        def capture(xq, wq, k, stride=1, groups=1):
+            key = (self.backbone, *xq.shape[1:], wq.shape[0], k, stride, groups)
+            if key not in self.seen:
+                self.seen[key] = {"xq": xq[:G1_FRAMES].clone(), "wq": wq.clone(), "per_pass": 0}
+            if self.calls < G1_PER_PASS[self.backbone]:  # the first pass's launches
+                self.seen[key]["per_pass"] += 1
+            self.calls += 1
+            return self.orig(xq, wq, k, stride, groups)
+
+        resnet.grouped_conv2d_int8 = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.module.grouped_conv2d_int8 = self.orig
+        return False
+
+
+def timm_serve(label: str, cfg, reqs, backbone: str, g1_seen: dict):
+    """A cold and a warm B=2 ``ground_many`` at full width: tubes in range,
+    K1 once a request and held to its plain version on a request's frames,
+    K2 never, G1 ``G1_PER_PASS`` times a trunk pass (calibration included).
+    Returns (line, launches)."""
+    import torch
+
+    from tubedetr_tpu_torch.apps.pipeline import GroundingPipeline
+    from tubedetr_tpu_torch.ops.fused_bottleneck import fused_bottleneck_block
+    from tubedetr_tpu_torch.ops.int8_conv import grouped_conv2d_int8
+    from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resize_normalize.launches = 0
+    fused_bottleneck_block.launches = 0
+    grouped_conv2d_int8.launches = 0
+    with K1Capture() as k1, G1Capture(g1_seen, backbone):
+        t0 = time.perf_counter()
+        pipe = GroundingPipeline(cfg)
+        build_s = time.perf_counter() - t0
+        _, cold_s = synced(lambda: pipe.ground_many(reqs, render=False))
+        results, warm_s = synced(lambda: pipe.ground_many(reqs, render=False))
+    launches = {"resize_normalize": resize_normalize.launches,
+                "fused_bottleneck": fused_bottleneck_block.launches,
+                "grouped_conv_s8": grouped_conv2d_int8.launches}
+    check_tubes(label, results)
+    quantized = cfg.backbone_quant != "none"
+    passes = 3 if quantized else 0  # calibration's observer pass and two forwards
+    want = {"resize_normalize": 2 * len(reqs), "fused_bottleneck": 0,
+            "grouped_conv_s8": G1_PER_PASS[backbone] * passes}
+    if launches != want:
+        fail(f"{label}: launches {launches}, expected {want}")
+    line = {"build_s": build_s, "cold_ground_many_b2_s": cold_s, "warm_ground_many_b2_s": warm_s,
+            "warm_per_request_s_b2": warm_s / 2, "cold_calibration_s": pipe.calibration_s,
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "frames_dtype": str(pipe.frames_dtype).replace("torch.", ""),
+            "out_channels": pipe.model.backbone[0].body.out_channels,
+            "segments": [r["sted"] for r in results], "launches": launches,
+            "k1_max_abs_err": k1.check(label)}
+    print(f"[timm] {label}: {json.dumps(line)}", flush=True)
+    del pipe, results
+    return line, launches
+
+
+def phase_g1(seen: dict) -> dict:
+    """G1 on the inputs the int8 serving legs gave it, cut to one request's
+    ``G1_FRAMES`` frames: exactly its plain version at every shape, then
+    timed (CUDA events) beside the plain version and the library call: a
+    float32 cuDNN grouped conv on the int8 values (TF32 off), the cast in
+    and the rounding to int32 out included, held to the plain version too.
+    Its products and sums are integers below 2^24, so float32 holds them
+    exactly; where it did not agree, the library call is the float64 one,
+    the plain version. Returns the kernels-line entry, summed over one
+    EfficientNet-B0 trunk pass."""
+    import torch
+    from torch.nn import functional as F
+
+    from tubedetr_tpu_torch.ops.int8_conv import grouped_conv2d_int8, grouped_conv2d_int8_plain
+    from tubedetr_tpu_torch.probes import cuda_ms
+
+    torch.backends.cudnn.allow_tf32 = False  # as the port sets it (utils/device.py)
+    cases = {}
+    for key, v in sorted(seen.items()):
+        backbone, h, w, c, o, k, stride, groups = key
+        xq, wq = v["xq"], v["wq"]
+        before = grouped_conv2d_int8.launches
+        out = grouped_conv2d_int8(xq, wq, k, stride, groups)
+        ref = grouped_conv2d_int8_plain(xq, wq, k, stride, groups)
+        err = (out.double() - ref.double()).abs().max().item()
+        grouped_conv2d_int8.launches = before  # a check, not the main path
+        if err != 0 or not torch.equal(out, ref):
+            fail(f"G1 {key}: differs from its plain version, max |err| {err}")
+        n, ho, wo, _ = out.shape
+        nbytes = xq.numel() + wq.numel() + 4 * out.numel()
+        ops = 2 * out.numel() * wq.shape[1]
+        bound_ms, bound_by = bound(nbytes, ops, INT8_OPS_PER_S)
+        # the weights as a library route would keep them (cached, like _int8_weight's)
+        wf = wq.float().reshape(o, k, k, c // groups).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+
+        def library(xq=xq, wf=wf, k=k, stride=stride, groups=groups):
+            # NCHW view of NHWC memory (channels_last) in, NHWC int32 out
+            y = F.conv2d(xq.float().permute(0, 3, 1, 2), wf, stride=stride, padding=k // 2,
+                         groups=groups)
+            return y.round_().to(torch.int32).permute(0, 2, 3, 1)
+
+        lib_err = (library().double() - ref.double()).abs().max().item()
+        name = f"{backbone[5:]}:{n}x{h}x{w}x{c}/k{k}s{stride}g{groups}"
+        cases[name] = {
+            "backbone": backbone, "per_pass": v["per_pass"], "max_abs_err": err,
+            "ms": cuda_ms(lambda: grouped_conv2d_int8(xq, wq, k, stride, groups),
+                          groups=7, per_group=3),
+            "plain_ms": cuda_ms(lambda: grouped_conv2d_int8_plain(xq, wq, k, stride, groups),
+                                groups=3, per_group=1),
+            "cudnn_f32_max_abs_err": lib_err,
+            "cudnn_f32_ms": cuda_ms(library, groups=5, per_group=2),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        exact = lib_err == 0
+        cases[name]["library"] = "float32 cuDNN" if exact else "float64 cuDNN (the plain version)"
+        cases[name]["library_ms"] = cases[name]["cudnn_f32_ms" if exact else "plain_ms"]
+        grouped_conv2d_int8.launches = before
+        print(f"[g1] {name}: {json.dumps(cases[name])}", flush=True)
+        del out, ref, wf
+        torch.cuda.empty_cache()
+    head = "timm_efficientnet_b0"
+    b0 = [v for v in cases.values() if v["backbone"] == head]
+    if sum(v["per_pass"] for v in b0) != G1_PER_PASS[head]:
+        fail(f"G1: {sum(v['per_pass'] for v in b0)} launches a B0 pass captured, "
+             f"expected {G1_PER_PASS[head]}")
+
+    def per_pass(key, backbone=head):
+        return sum(v[key] * v["per_pass"] for v in cases.values() if v["backbone"] == backbone)
+
+    by_ops = sum(v["per_pass"] * v["bound_ms"] for v in b0 if v["bound_by"] == "operations")
+    entry = {
+        "name": "grouped_conv_s8",
+        "route": "cuda",
+        "source": "tubedetr_tpu_torch/csrc/grouped_conv_s8.cu",
+        # not a TPU kernel: the XLA grouped int8 conv of the JAX BottleneckConv
+        "replaces": "tubedetr_tpu/models/resnet.py:240",
+        "launches": None,
+        "max_abs_err": max(v["max_abs_err"] for v in cases.values()),
+        "ms": per_pass("ms"),
+        "plain_ms": per_pass("plain_ms"),
+        "bound_ms": per_pass("bound_ms"),
+        "bound_by": "operations" if by_ops >= per_pass("bound_ms") - by_ops else "bytes",
+        # cuDNN's float32 grouped conv on the int8 values, exact at every
+        # shape where "library" says so (else the float64 call there)
+        "library_ms": per_pass("library_ms"),
+        "library": sorted({v["library"] for v in cases.values()}),
+        "library_max_abs_err_f32": max(v["cudnn_f32_max_abs_err"] for v in cases.values()),
+        "per": f"one EfficientNet-B0 trunk pass of one request ({G1_FRAMES} frames of "
+               f"{K1_PAD[0]}x{K1_PAD[1]}): {G1_PER_PASS[head]} launches",
+        "regnety_008_pass": {k: per_pass(k, "timm_regnety_008")
+                             for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        "cases": cases,
+    }
+    print(f"[g1] per B0 pass: {entry['ms']:.3f} ms (bound {entry['bound_ms']:.3f} ms, plain "
+          f"{entry['plain_ms']:.3f} ms, library {entry['library_ms']:.3f} ms, "
+          f"{entry['library']}); per RegNetY-008 pass: {entry['regnety_008_pass']}",
+          flush=True)
+    return entry
+
+
+class QuantNoise:
+    """Inside, every int8 quantizer of the timm trunks first multiplies its
+    input by ``1 + 2^-23 u``, ``u`` uniform in [-1, 1] from ``seed``: at
+    most one float32 ulp, what another summation order leaves on a value.
+    The CPU model against itself so gives the noise floor of an int8
+    comparison between two devices."""
+
+    def __init__(self, seed: int):
+        self.seed = seed
+
+    def __enter__(self):
+        import torch
+
+        from tubedetr_tpu_torch.models import resnet
+
+        self.module, self.orig = resnet, resnet.quantize_act
+        gen = torch.Generator().manual_seed(self.seed)
+
+        def noisy(x, act_max, mode, observe):
+            u = torch.rand(x.shape, generator=gen, dtype=torch.float64) * 2 - 1
+            return self.orig((x.double() * (1 + 2.0 ** -23 * u)).float(), act_max, mode, observe)
+
+        resnet.quantize_act = noisy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.quantize_act = self.orig
+        return False
+
+
+def int8_readings(a, b, trunk_a, trunk_b) -> dict:
+    """How far one int8 forward lies from another: the trunk's correlation
+    and largest difference in steps of its own scale, the heads' largest
+    differences."""
+    import numpy as np
+
+    steps = np.abs(trunk_a - trunk_b) / (np.abs(trunk_b).max() / 127.0)
+    out = {"trunk_corr": float(np.corrcoef(trunk_a.ravel(), trunk_b.ravel())[0, 1]),
+           "trunk_max_steps": float(steps.max()),
+           "trunk_differing": float((steps > 0.5).mean())}
+    for k in SMALL_INT8_ATOL:
+        out[k] = float(np.abs(a[k] - b[k]).max())
+    return out
+
+
+def timm_int8_noise(cpu, sample, out, trunk) -> dict:
+    """The noise floor of ``cpu``'s int8 forward on ``sample`` (whose
+    outputs are ``out`` and trunk output ``trunk``): the worst of
+    ``SMALL_TIMM_NOISE_DRAWS`` ``QuantNoise`` draws, key by key."""
+    import torch
+
+    worst = {}
+    for seed in range(SMALL_TIMM_NOISE_DRAWS):
+        with QuantNoise(seed):
+            noisy = cpu.forward([sample])[0]
+            with torch.inference_mode():
+                t = cpu.model.backbone[0].body(sample.frames.float()).float().numpy()
+        r = int8_readings(noisy, out, t, trunk)
+        for k, v in r.items():
+            worst[k] = min(worst.get(k, v), v) if k == "trunk_corr" else max(worst.get(k, v), v)
+    return worst
+
+
+def phase_timm_small(workdir: str):
+    """Each family on the small config, card against CPU from the same
+    seeded weights (``fan_in_state_dict``) and frames: float (every output
+    to ``SMALL_ATOL``) and int8_static (the CPU calibrates, the card serves
+    the same scales on the same bfloat16 frames, G1 launched on the card),
+    held to a few times the CPU's own noise floor (``timm_int8_noise``,
+    ``SMALL_TIMM_TRUNK_X``, ``SMALL_TIMM_HEADS_X``)."""
+    import numpy as np
+    import torch
+
+    from tubedetr_tpu_torch.apps.pipeline import GroundingPipeline
+    from tubedetr_tpu_torch.models.quantize import model_qscales
+    from tubedetr_tpu_torch.ops.int8_conv import grouped_conv2d_int8
+
+    path = os.path.join(workdir, "small.npy")
+    for i, backbone in enumerate(TIMM_BACKBONES):
+        cfg = small_cfg().replace(backbone=backbone)
+        pipes = {dev: GroundingPipeline(cfg, device=dev) for dev in ("cuda", "cpu")}
+        # weights at a trained model's scale: at the seed's 0.02 the
+        # activations of a deep trunk fall below the quantizer's floor
+        weights = fan_in_state_dict(pipes["cpu"].model, seed=30 + i)
+        outs = {}
+        for dev, pipe in pipes.items():
+            pipe.model.load_state_dict(weights)
+            outs[dev] = pipe.forward([pipe.prepare(path, "a red square", -1, -1, "v")[0]])[0]
+        errs = {k: float(np.abs(outs["cuda"][k] - outs["cpu"][k]).max()) for k in outs["cpu"]}
+        if not max(errs.values()) <= SMALL_ATOL:
+            fail(f"timm small {backbone}: card and CPU differ: {errs}")
+        line = {"float_max_abs_err": errs}
+        qcfg = cfg.replace(backbone_quant="int8_static", fused_bottleneck=True)
+        cpu = GroundingPipeline(qcfg, device="cpu")
+        cpu.model.load_state_dict(weights)
+        sample, _ = cpu.prepare(path, "a red square", -1, -1, "v")
+        q = {"cpu": cpu.forward([sample])[0]}  # calibrates on the CPU
+        frames_cpu = sample.frames
+        with torch.inference_mode():
+            trunk_cpu = cpu.model.backbone[0].body(frames_cpu.float()).float().numpy()
+        float_cpu = pipes["cpu"].forward([sample])[0]  # the same bf16 frames, float trunk
+        line["int8_vs_float_cpu"] = {k: float(np.abs(q["cpu"][k] - float_cpu[k]).max())
+                                     for k in SMALL_INT8_ATOL}
+        line["cpu_noise_floor"] = noise = timm_int8_noise(cpu, sample, q["cpu"], trunk_cpu)
+        card = GroundingPipeline(qcfg, device="cuda")
+        card.model.load_state_dict(weights)
+        card.set_qscales(model_qscales(cpu.model))
+        sample.frames = frames_cpu.cuda()
+        before = grouped_conv2d_int8.launches
+        q["cuda"] = card.forward([sample])[0]
+        line["g1_launches"] = g1 = grouped_conv2d_int8.launches - before
+        if (g1 > 0) != (G1_PER_PASS[backbone] > 0):
+            fail(f"timm small {backbone}: the card's int8 forward launched G1 {g1} times")
+        with torch.inference_mode():
+            trunk_card = card.model.backbone[0].body(sample.frames.float()).float().cpu().numpy()
+        line["card_vs_cpu"] = got = int8_readings(q["cuda"], q["cpu"], trunk_card, trunk_cpu)
+        line["bounds"] = bounds = {
+            "trunk_corr": 1 - SMALL_TIMM_TRUNK_X * (1 - noise["trunk_corr"]),
+            **{k: max(SMALL_INT8_ATOL[k], SMALL_TIMM_HEADS_X * noise[k]) for k in SMALL_INT8_ATOL}}
+        print(f"[timm-small] {backbone}: {json.dumps(line)}", flush=True)
+        if not got["trunk_corr"] >= bounds["trunk_corr"]:
+            fail(f"timm small {backbone} int8: trunk correlation card vs CPU "
+                 f"{got['trunk_corr']} (bound {bounds['trunk_corr']})")
+        for k in SMALL_INT8_ATOL:
+            if not got[k] <= bounds[k]:
+                fail(f"timm small {backbone} int8: {k} differs between card and CPU by "
+                     f"{got[k]} (bound {bounds[k]})")
+        del cpu, card, pipes
+
+
+def timm_train_step(smi: str, cfg, label: str, calibrate: bool = False):
+    """One step of ``cfg`` at the published training config's frames from
+    the fan-in weights: every loss term finite, every trunk parameter's
+    gradient finite and not all zero, every trunk parameter whose gradient
+    reaches 1e-6 moved and the stem's always (ConvNeXt's ``stem.1``
+    LayerNorm among them), every FrozenBN buffer unchanged bit for bit; K1
+    and K2 never launched. Returns (line, launches)."""
+    import math
+
+    import torch
+
+    from tubedetr_tpu_torch.data.collate import collate_pairs
+    from tubedetr_tpu_torch.data.synthetic import make_synthetic_sample
+    from tubedetr_tpu_torch.models.quantize import calibrate_qscales
+    from tubedetr_tpu_torch.models.resnet import FrozenBatchNorm2d
+    from tubedetr_tpu_torch.models.tubedetr import build_model
+    from tubedetr_tpu_torch.ops.fused_bottleneck import fused_bottleneck_block
+    from tubedetr_tpu_torch.ops.int8_conv import grouped_conv2d_int8
+    from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize
+    from tubedetr_tpu_torch.parallel.train_step import create_train_state, model_inputs, to_device
+    from tubedetr_tpu_torch.train.optim import base_lrs
+
+    h, w = TRAIN_HW
+    sample = make_synthetic_sample(100, t=TRAIN_T, h=h, w=w, vocab=cfg.text_vocab_size, text_len=12)
+    ((batch, _),) = collate_pairs([sample], 1, cfg.video_max_len_train, cfg.stride,
+                                  cfg.max_text_len)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    model.load_state_dict(fan_in_state_dict(model, seed=8))
+    calibration_s = None
+    if calibrate:
+        inputs = model_inputs(to_device(batch, torch.device("cuda")))
+        _, calibration_s = synced(lambda: calibrate_qscales(cfg, model, inputs))
+        del inputs
+    state = create_train_state(cfg, model)
+    before = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    resize_normalize.launches = 0
+    fused_bottleneck_block.launches = 0
+    grouped_conv2d_int8.launches = 0
+    step = timed_step(cfg, keep_grads=True)
+    state, _ = step(state, batch, base_lrs(cfg), cfg.seed)
+    launches = {"resize_normalize": resize_normalize.launches,
+                "fused_bottleneck": fused_bottleneck_block.launches,
+                "grouped_conv_s8": grouped_conv2d_int8.launches}
+    bad = [k for k, v in step.metrics[0].items() if not math.isfinite(v)]
+    if bad:
+        fail(f"{label}: non-finite {bad}")
+    trunk = [n for n, _ in model.named_parameters() if n.startswith("backbone.")]
+    dead = [n for n in trunk if n not in step.grads or not bool(torch.isfinite(step.grads[n]).all())
+            or not bool(step.grads[n].any())]
+    after = model.state_dict()
+    # AdamW's first step moves an element by lr * g / (|g| + 1e-8): a
+    # parameter whose gradient stays below 1e-6 may move by less than an ulp
+    still = [n for n in trunk if torch.equal(before[n], after[n])
+             and (float(step.grads[n].abs().max()) > 1e-6 or n in TIMM_STEMS)]
+    if dead or still or not trunk:
+        fail(f"{label}: trunk parameters without a gradient {dead[:5]} or unmoved {still[:5]}")
+    frozen = [f"{m}.{b}" for m, mod in model.named_modules() if isinstance(mod, FrozenBatchNorm2d)
+              for b, _ in mod.named_buffers()]
+    moved = [n for n in frozen if not torch.equal(before[n], after[n])]
+    if moved:
+        fail(f"{label}: FrozenBN buffers changed: {moved[:5]}")
+    if launches["resize_normalize"] or launches["fused_bottleneck"]:
+        fail(f"{label}: the training path launched K1 or K2: {launches}")
+    line = {"card": smi, "cold_step_s": step.split[0]["step_s"], "split_s": step.split[0],
+            "loss_total": step.metrics[0]["loss_total"],
+            "grad_norm_pre_clip": step.metrics[0]["grad_norm"],
+            "trunk_parameters_trained": len(trunk), "frozen_bn_buffers": len(frozen),
+            "trunk_parameters_moved": sum(not torch.equal(before[n], after[n]) for n in trunk),
+            "calibration_s": calibration_s,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches}
+    print(f"[timm-train] {label}: {json.dumps(line)}", flush=True)
+    del state, model, step
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+def phase_timm(workdir: str, smi: str):
+    """The timm families (``[timm]``): each at full width in bf16 and in
+    int8_static with ``fused_bottleneck`` on (K2 never launched, G1
+    ``G1_PER_PASS`` times a trunk pass); G1 held exactly to its plain
+    version and timed on the inputs those legs gave it; each family on the
+    small config card against CPU; one bf16 training step of the published
+    config with each family, and one float32 ``int8_qat`` +
+    ``backbone_quant_fast int8_static`` step with EfficientNet-B0 (its fast
+    pass launches G1).
+    Returns (the G1 entry, launches by path)."""
+    import torch
+
+    phase_t0 = time.perf_counter()
+    reqs = [(os.path.join(workdir, f"request{i}.npy"), q, -1.0, -1.0)
+            for i, q in enumerate(("a man in a red shirt rides a horse",
+                                   "the dog runs across the grass"))]
+    g1_seen, by_path = {}, {}
+    for backbone in TIMM_BACKBONES:
+        for mode in ("bf16", "int8_static"):
+            extra = {"backbone_quant": "int8_static", "fused_bottleneck": True} \
+                if mode == "int8_static" else {}
+            label = f"{backbone[5:]} {mode} full width"
+            _, by_path[label] = timm_serve(label, full_width_cfg("bfloat16", backbone=backbone,
+                                                                 **extra), reqs, backbone, g1_seen)
+    torch.cuda.empty_cache()
+    entry = phase_g1(g1_seen)
+    del g1_seen
+    torch.cuda.empty_cache()
+    phase_timm_small(workdir)
+    by_path.update(phase_timm_train(smi))
+    print(f"[timm] phase took {time.perf_counter() - phase_t0:.1f} s", flush=True)
+    return entry, by_path
+
+
+def phase_timm_train(smi: str) -> dict:
+    """One bf16 step of the published training config with each family,
+    then one float32 ``int8_qat`` + ``backbone_quant_fast int8_static``
+    step with EfficientNet-B0 (G1 ``G1_PER_PASS`` times: its fast pass).
+    Returns the launches by leg."""
+    by_path = {}
+    for backbone in TIMM_BACKBONES:
+        cfg = train_cfg().replace(backbone=backbone, compute_dtype="bfloat16").validate_training()
+        label = f"{backbone[5:]} bf16 train"
+        _, by_path[label] = timm_train_step(smi, cfg, label)
+        if by_path[label]["grouped_conv_s8"]:
+            fail(f"{label}: the float training step launched G1")
+    # in float32: in bf16 the QAT convs' depthwise backward on cuDNN took
+    # 10.9 s of a 15.1 s cold step (float32's float convs: 2.6 s)
+    cfg = train_cfg().replace(backbone="timm_efficientnet_b0", backbone_quant="int8_qat",
+                              backbone_quant_fast="int8_static").validate_training()
+    label = "efficientnet_b0 f32 int8_qat+fast int8_static train"
+    _, by_path[label] = timm_train_step(smi, cfg, label, calibrate=True)
+    if by_path[label]["grouped_conv_s8"] != G1_PER_PASS["timm_efficientnet_b0"]:
+        fail(f"{label}: G1 launched {by_path[label]['grouped_conv_s8']} times for one "
+             f"int8_static fast pass")
+    return by_path
+
+
 def main() -> int:
     try:
         import torch
@@ -3037,6 +3525,7 @@ def main() -> int:
         phase_small_int8_agreement(workdir)
         launches = phase_serve(workdir)
         flag_launches = phase_variants(workdir)
+        g1, timm_launches = phase_timm(workdir, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -3062,9 +3551,17 @@ def main() -> int:
                                      **{path: n[key] for path, n in quant_launches.items()}}
     k2["launches_by_path"]["dist int8 eval (rank 0)"] = dist_launches
     k2["launches_by_path"]["dist tp int8 eval (rank 0)"] = dist_tp_launches
+    # the timm legs: K1 and K2 by path beside the others', and G1's own main
+    # path, the int8_static serving legs of [timm]
+    for entry, key in ((k1, "resize_normalize"), (k2, "fused_bottleneck")):
+        entry["launches_by_path"].update({f"timm {p}": n[key] for p, n in timm_launches.items()})
+    g1["launches_by_path"] = {f"timm {p}": n["grouped_conv_s8"] for p, n in timm_launches.items()}
+    g1["launches"] = sum(n for p, n in g1["launches_by_path"].items() if "int8_static full" in p)
+    if not g1["launches"]:
+        fail("G1 was not launched on its main path, the timm int8_static serving legs")
 
     print(f"[time] chip_smoke.py took {time.perf_counter() - start:.1f} s", flush=True)
-    print(json.dumps({"kernels": [k1, k2, *probes]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, g1, *probes]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

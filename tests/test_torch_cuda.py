@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA GPU, marked ``cuda``.
 
 They hold the CUDA kernels (K1, resize+normalize; K2, the fused int8
-bottleneck, also at the train CLI's layer maps; the probes P1-P5) to their
+bottleneck, also at the train CLI's layer maps; G1, the grouped int8 conv of
+the timm trunks; the probes P1-P5) to their
 plain PyTorch versions on the card, and the pipeline on the card (float,
 and int8_static + K2) to the pipeline on the CPU; the HTTP server on the
 card coalesces two concurrent requests into one forward; the data
@@ -29,6 +30,7 @@ from tubedetr_tpu_torch.ops.fused_bottleneck import (
     n_bands,
     tile_plan,
 )
+from tubedetr_tpu_torch.ops.int8_conv import grouped_conv2d_int8, grouped_conv2d_int8_plain
 from tubedetr_tpu_torch.ops.probe_bottleneck import bottleneck_variant, flat_bottleneck
 from tubedetr_tpu_torch.ops.probe_mm import bf16_mm, int8_mm, int8_mm_frames
 from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize, resize_normalize_plain
@@ -817,3 +819,46 @@ def test_maybe_profile_traces_the_cards_kernels(tmp_path):
     with open(tmp_path / name) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "kernel" for e in events)
+
+
+# G1: (N, H, W, C, k, stride, groups), O = C as in the timm trunks
+G1_CASES = {
+    "dw-k3-s1": (2, 33, 47, 96, 3, 1, 96),
+    "dw-k3-s2": (2, 33, 47, 144, 3, 2, 144),
+    "dw-k5-s1": (1, 19, 21, 240, 5, 1, 240),
+    "dw-k5-s2": (1, 19, 21, 672, 5, 2, 672),
+    "g16-k3-s1": (2, 22, 38, 128, 3, 1, 8),
+    "g16-k3-s2": (2, 22, 38, 320, 3, 2, 20),
+    "g8-k3-odd": (3, 5, 7, 24, 3, 1, 3),
+    "g48-k3-s2": (1, 11, 13, 96, 3, 2, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(G1_CASES))
+def test_g1_kernel_matches_plain(case):
+    """G1 equals its plain version exactly (int32), on the card and on the
+    CPU; one launch a call."""
+    require_cuda()
+    n, h, w, c, k, stride, groups = G1_CASES[case]
+    gen = torch.Generator().manual_seed(6)
+    xq = torch.randint(-127, 128, (n, h, w, c), dtype=torch.int8, generator=gen)
+    wq = torch.randint(-127, 128, (c, k * k * (c // groups)), dtype=torch.int8, generator=gen)
+    before = grouped_conv2d_int8.launches
+    got = grouped_conv2d_int8(xq.cuda(), wq.cuda(), k, stride, groups)
+    torch.cuda.synchronize()
+    assert grouped_conv2d_int8.launches == before + 1
+    assert torch.equal(got.cpu(), grouped_conv2d_int8_plain(xq, wq, k, stride, groups))
+    assert torch.equal(got, grouped_conv2d_int8_plain(xq.cuda(), wq.cuda(), k, stride, groups))
+
+
+def test_g1_rejects_what_it_cannot_take():
+    require_cuda()
+    xq = torch.zeros((1, 4, 4, 8), dtype=torch.int8, device="cuda")
+    wq = torch.zeros((8, 9 * 4), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        grouped_conv2d_int8(xq.transpose(1, 2), wq, 3, 1, 2)
+    with pytest.raises(ValueError, match="aligned"):
+        grouped_conv2d_int8(xq.flatten()[1:].reshape(1, 1, 1, -1)[..., :8].reshape(1, 1, 1, 8),
+                            wq, 3, 1, 2)
+    with pytest.raises(ValueError, match="devices"):
+        grouped_conv2d_int8(xq, wq.cpu(), 3, 1, 2)

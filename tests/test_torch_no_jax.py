@@ -3,12 +3,13 @@
 A subprocess blocks ``jax``, ``flax``, ``optax`` and ``tubedetr_tpu`` in
 ``sys.modules``, imports every module of ``tubedetr_tpu_torch`` (the int8
 modules ``ops/int8_conv.py``, ``ops/fused_bottleneck.py`` and
-``models/quantize.py``, the probes' ``ops/probe_mm.py``,
+``models/quantize.py``, the timm trunks, the probes' ``ops/probe_mm.py``,
 ``ops/probe_bottleneck.py`` and ``probes/``, and the data pipeline and the
 train CLI among them) and ``chip_smoke``, builds the port's staging library
 from its own source into a fresh path and runs it, serves one tiny request
-on the CPU with the float backbone and one with the int8_static + fused
-one, calibration included, and trains one tiny CLI epoch over a VidSTG-
+on the CPU with the float backbone, one with the int8_static + fused
+one and one with an int8_static EfficientNet (G1's plain version),
+calibration included, and trains one tiny CLI epoch over a VidSTG-
 layout directory. An audit hook in that process records every file it
 opens, every program it starts and every library it loads: none lies inside
 ``tubedetr_tpu/``. An AST scan checks that no port file or
@@ -137,6 +138,10 @@ def test_port_imports_and_serves_with_jax_blocked(tmp_path):
                                           fused_bottleneck=True), device="cpu")
         out = q.ground(path, "a red square", render=False)
         assert not q._needs_calibration and len(out["boxes"]) == 6
+        t = GroundingPipeline(cfg.replace(backbone="timm_efficientnet_b0",
+                                          backbone_quant="int8_static"), device="cpu")
+        out = t.ground(path, "a red square", render=False)
+        assert not t._needs_calibration and len(out["boxes"]) == 6
         from tubedetr_tpu_torch.data import native
         native.SO_PATH = {str(tmp_path / "build" / "libstaging.so")!r}
         frames = np.random.RandomState(1).randint(0, 256, (3, 12, 16, 3), dtype=np.uint8)
@@ -181,7 +186,8 @@ def test_new_int8_modules_are_scanned():
                 "data/decode.py", "data/collate.py", "apps/train.py", "utils/misc.py",
                 "parallel/dist.py", "parallel/mesh.py", "parallel/tp.py", "core/sharding.py",
                 "parallel/pp.py", "parallel/collectives.py", "models/resnet.py",
-                "models/tubedetr.py"):
+                "models/tubedetr.py", "models/timm.py", "models/efficientnet.py",
+                "models/regnet.py", "models/convnext.py", "interop/from_jax.py"):
         assert os.path.join("tubedetr_tpu_torch", mod) in names
 
 

@@ -21,9 +21,14 @@ as the JAX package's does, the training fields (schedule, optimizer,
 ``int8_qat`` (fake-quant with straight-through gradients),
 ``backbone_quant_fast`` and ``backbone_quant_frozen`` in ``int8`` and
 ``int8_static``, ``log_quant_drift`` and ``recalibrate_each_epoch``, and
-every int8 mode on the GroupNorm trunks. Still refused: the timm families
-(ROADMAP item 16f). ``validate_training`` adds what the JAX package refuses
-for training.
+every int8 mode on the GroupNorm trunks. The timm families run too
+(``timm_efficientnet_b0..b3``, every ``timm_regnet{x,y}_{002..032}``,
+``timm_convnext_{tiny,small,base}``: ``models/timm.py``), in every
+``backbone_quant`` and ``backbone_quant_fast`` and both compute dtypes;
+another ``timm_*`` name raises the JAX package's message, and
+``backbone_quant_frozen`` on them is refused as there (they have no
+always-frozen prefix). ``validate_training`` adds what the JAX package
+refuses for training.
 ``apply_json_overlay`` is the CLI's ``--dataset_config``.
 """
 
@@ -241,7 +246,8 @@ class TubeDETRConfig:
         if self.backbone_quant_fast != "none" and not self.fast:
             raise ValueError("backbone_quant_fast requires fast=True")
         if self.backbone_quant_frozen != "none" and self.backbone.startswith("timm_"):
-            # the timm families have no always-frozen prefix
+            # the timm families have no always-frozen prefix (timm freezes
+            # only BatchNorm, which is buffers here)
             raise NotImplementedError("backbone_quant_frozen applies to the resnet family only")
         if self.mesh_data < 1 and self.mesh_data != -1:
             raise ValueError(f"mesh_data must be >= 1 (or -1: every rank), got {self.mesh_data}")
@@ -256,10 +262,9 @@ class TubeDETRConfig:
                 f"unknown remat_policy {self.remat_policy!r}; expected one of {REMAT_POLICIES}"
             )
         if self.backbone.startswith("timm_"):
-            raise NotImplementedError(
-                f"backbone {self.backbone!r}: the timm families come with ROADMAP "
-                "queue 1 'Secondary features', item 16f (the timm families)"
-            )
+            from tubedetr_tpu_torch.models.timm import timm_trunk_class
+
+            timm_trunk_class(self.backbone)  # raises for a name of no family
         return self
 
     def validate_training(self) -> "TubeDETRConfig":

@@ -10,7 +10,8 @@ names are the reference checkpoint's. Layout rules:
 * Conv kernel HWIO ``(kH, kW, I, O)``  -> ``Conv2d.weight`` OIHW
 * Dense kernel ``(in, out)``           -> ``Linear.weight`` ``(out, in)``
 * attention ``q_proj``/``k_proj``/``v_proj`` -> packed ``in_proj_weight``/``in_proj_bias``
-* the ``input_proj`` Dense ``(2048, D)`` -> a 1x1 ``Conv2d`` ``(D, 2048, 1, 1)``
+* the ``input_proj`` Dense ``(C, D)`` -> a 1x1 ``Conv2d`` ``(D, C, 1, 1)`` (C the
+  trunk's width: 2048 for a ResNet)
 * FrozenBatchNorm statistics come from the ``buffers`` collection; the
   GroupNorm of a ``-gn`` trunk is a parameter (``scale``/``bias`` ->
   ``weight``/``bias``), as the JAX package's ``convert_resnet`` reads it
@@ -24,11 +25,20 @@ names are the reference checkpoint's. Layout rules:
 * the fast branch as a linear layer (``""``, gating, pool, noslow) or as
   ``fast_mode="transformer"``'s encoder layer plus final norm
   (``fast_encoder/layer_0``, ``fast_encoder/norm``); noslow has no encoder.
+* the timm trunks (``efficientnet_from_jax``, ``regnet_from_jax``,
+  ``convnext_from_jax``: the inverses of the JAX package's
+  ``convert_timm_*``) under timm's names; ConvNeXt's ``mlp_fc1``/``mlp_fc2``
+  are ``(1, 1, in, out)`` conv kernels there and timm ``Linear`` weights
+  ``(out, in)`` here.
 
 ``qscales_from_jax`` / ``qscales_to_flax`` move the int8 backbone's
 calibrated activation maxima (the flax ``qscales`` collection, in either
 layout) to and from the port's observer buffers, so calibration sidecars
-interchange between the two packages.
+interchange between the two packages: a ResNet's, and a timm trunk's one
+``act_max`` a quantized conv (``blocks_1_0/conv_dw/act_max`` <->
+``blocks.1.0.conv_dw.act_max``, ``s3_b2/conv2_conv/act_max`` <->
+``s3.b2.conv2.conv.act_max``, ``s2_b5/mlp_fc1/act_max`` <->
+``stages.2.blocks.5.mlp.fc1.act_max``).
 """
 
 from __future__ import annotations
@@ -133,6 +143,114 @@ def resnet_from_jax(params: Tree, buffers: Tree, prefix: str = "") -> Dict[str, 
     return _tensors(out)
 
 
+def _conv_bias(tree: Tree, name: str) -> Dict[str, np.ndarray]:
+    return {**_conv(tree, name), f"{name}.bias": _np(tree["bias"])}
+
+
+def _blocks(params: Tree, pattern: str):
+    """(match groups as ints, key) of the block keys of ``params`` that
+    ``pattern`` matches, in order."""
+    found = []
+    for key in params:
+        m = re.fullmatch(pattern, key)
+        if m:
+            found.append((tuple(int(g) for g in m.groups()), key))
+    return sorted(found)
+
+
+def efficientnet_from_jax(params: Tree, buffers: Tree,
+                          prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX ``EfficientNet`` params + FrozenBN buffers -> the port's
+    ``EfficientNet`` state_dict (timm's names)."""
+    out = {**_conv(params["conv_stem"], f"{prefix}conv_stem"),
+           **_frozen_bn(buffers["bn1"], f"{prefix}bn1")}
+    for (si, bi), key in _blocks(params, r"blocks_(\d+)_(\d+)"):
+        p, b, name = params[key], buffers[key], f"{prefix}blocks.{si}.{bi}"
+        for conv in ("conv_dw", "conv_pw", "conv_pwl"):
+            if conv in p:
+                out.update(_conv(p[conv], f"{name}.{conv}"))
+        for se in ("conv_reduce", "conv_expand"):
+            out.update(_conv_bias(p["se"][se], f"{name}.se.{se}"))
+        for bn in b:
+            out.update(_frozen_bn(b[bn], f"{name}.{bn}"))
+    return _tensors(out)
+
+
+def regnet_from_jax(params: Tree, buffers: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX ``RegNet`` params + FrozenBN buffers -> the port's ``RegNet``
+    state_dict (timm's names)."""
+    out = {**_conv(params["stem_conv"], f"{prefix}stem.conv"),
+           **_frozen_bn(buffers["stem_bn"], f"{prefix}stem.bn")}
+    for (si, bi), key in _blocks(params, r"s(\d+)_b(\d+)"):
+        p, b, name = params[key], buffers[key], f"{prefix}s{si}.b{bi}"
+        for unit in ("conv1", "conv2", "conv3", "downsample"):
+            if f"{unit}_conv" in p:
+                out.update(_conv(p[f"{unit}_conv"], f"{name}.{unit}.conv"))
+                out.update(_frozen_bn(b[f"{unit}_bn"], f"{name}.{unit}.bn"))
+        if "se" in p:
+            for fc in ("fc1", "fc2"):
+                out.update(_conv_bias(p["se"][fc], f"{name}.se.{fc}"))
+    return _tensors(out)
+
+
+def convnext_from_jax(params: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX ``ConvNeXt`` params (it has no buffers) -> the port's
+    ``ConvNeXt`` state_dict (timm's names)."""
+    out = {**_conv_bias(params["stem_conv"], f"{prefix}stem.0"),
+           **_layernorm(params["stem_norm"], f"{prefix}stem.1")}
+    for (si,), key in _blocks(params, r"s(\d+)_downsample_conv"):
+        name = f"{prefix}stages.{si}.downsample"
+        out.update(_layernorm(params[f"s{si}_downsample_norm"], f"{name}.0"))
+        out.update(_conv_bias(params[key], f"{name}.1"))
+    for (si, bi), key in _blocks(params, r"s(\d+)_b(\d+)"):
+        p, name = params[key], f"{prefix}stages.{si}.blocks.{bi}"
+        out.update(_conv_bias(p["conv_dw"], f"{name}.conv_dw"))
+        out.update(_layernorm(p["norm"], f"{name}.norm"))
+        for fc in ("fc1", "fc2"):  # a (1, 1, in, out) kernel -> a Linear (out, in)
+            out.update(_linear({"kernel": _np(p[f"mlp_{fc}"]["kernel"])[0, 0],
+                                "bias": p[f"mlp_{fc}"]["bias"]}, f"{name}.mlp.{fc}"))
+        out[f"{name}.gamma"] = _np(p["gamma"])
+    return _tensors(out)
+
+
+TRUNK_MARKERS = (  # a state_dict key of each trunk family
+    ("efficientnet", "conv_stem.weight"),
+    ("regnet", "stem.conv.weight"),
+    ("convnext", "stem.0.weight"),
+    ("resnet", "conv1.weight"),
+)
+
+
+def trunk_family(sd: Dict, prefix: str = "backbone.0.body.") -> str:
+    """The trunk family a state_dict holds ("efficientnet", "regnet",
+    "convnext", "resnet"), or "" without a trunk."""
+    for family, key in TRUNK_MARKERS:
+        if prefix + key in sd:
+            return family
+    return ""
+
+
+def backbone_family(backbone: str) -> str:
+    """The trunk family of a ``--backbone`` name."""
+    if not backbone.startswith("timm_"):
+        return "resnet"
+    from tubedetr_tpu_torch.models.timm import timm_trunk_class
+
+    return timm_trunk_class(backbone)[0].family.lower()
+
+
+def trunk_from_jax(params: Tree, buffers: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A JAX trunk's params and buffers -> the port's trunk state_dict, for
+    whichever family they hold."""
+    if "conv_stem" in params:
+        return efficientnet_from_jax(params, buffers, prefix)
+    if "stem_norm" in params:
+        return convnext_from_jax(params, prefix)
+    if "stem_conv" in params:
+        return regnet_from_jax(params, buffers, prefix)
+    return resnet_from_jax(params, buffers, prefix)
+
+
 def roberta_from_jax(p: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     """JAX ``RobertaModel`` params -> ``RobertaModel`` state_dict."""
     out = {}
@@ -218,6 +336,7 @@ def _expected_layout(cfg) -> dict:
         "learned positions": cfg.position_embedding in ("learned", "v3"),
         "learned time embedding": cfg.learn_time_embed and not cfg.no_time_embed,
         "GroupNorm trunk": cfg.backbone.endswith("-gn"),
+        "trunk family": backbone_family(cfg.backbone),
     }
 
 
@@ -238,16 +357,18 @@ def _layout(sd: Dict) -> dict:
         "learned time embedding": "transformer.time_embed.time_embed.weight" in sd,
         "GroupNorm trunk": "backbone.0.body.bn1.weight" in sd
         and "backbone.0.body.bn1.running_mean" not in sd,
+        "trunk family": trunk_family(sd),
     }
 
 
 def params_from_jax(variables: Tree, cfg) -> Dict[str, torch.Tensor]:
     """The JAX package's ``{"params", "buffers"}`` variables -> the port's
     ``state_dict`` (float32 CPU tensors) for ``TubeDETR(cfg)``. Raises when
-    the variables' layers or fast branch are not the ones ``cfg`` builds."""
+    the variables' trunk family, layers or fast branch are not the ones
+    ``cfg`` builds."""
     p = variables["params"]
-    sd = resnet_from_jax(p["backbone"], variables.get("buffers", {}).get("backbone", {}),
-                         "backbone.0.body.")
+    sd = trunk_from_jax(p["backbone"], variables.get("buffers", {}).get("backbone", {}),
+                        "backbone.0.body.")
     sd.update(roberta_from_jax(p["text_encoder"], "transformer.text_encoder."))
     sd.update(transformer_from_jax(p["transformer"], "transformer."))
     heads = {
@@ -300,10 +421,70 @@ def resnet_qscales_from_jax(tree: Tree, prefix: str = "") -> Dict[str, np.ndarra
     return out
 
 
+# a timm trunk's observers: (JAX block key, JAX conv key) <-> the port's
+# module path, one pattern a family
+TIMM_OBSERVERS = (
+    (r"blocks_(\d+)_(\d+)/(conv_dw|conv_pw|conv_pwl)",
+     r"blocks\.(\d+)\.(\d+)\.(conv_dw|conv_pw|conv_pwl)",
+     "blocks.{0}.{1}.{2}", "blocks_{0}_{1}/{2}"),
+    (r"s(\d+)_b(\d+)/(conv1|conv2|conv3|downsample)_conv",
+     r"s(\d+)\.b(\d+)\.(conv1|conv2|conv3|downsample)\.conv",
+     "s{0}.b{1}.{2}.conv", "s{0}_b{1}/{2}_conv"),
+    (r"s(\d+)_b(\d+)/mlp_(fc1|fc2)",
+     r"stages\.(\d+)\.blocks\.(\d+)\.mlp\.(fc1|fc2)",
+     "stages.{0}.blocks.{1}.mlp.{2}", "s{0}_b{1}/mlp_{2}"),
+)
+
+
+def _timm_observer(path: str, jax_side: bool) -> str:
+    """The other package's name of a timm observer path (without the
+    ``act_max`` leaf), or "" for a path of no timm family."""
+    for jax_re, port_re, port_fmt, jax_fmt in TIMM_OBSERVERS:
+        m = re.fullmatch(jax_re if jax_side else port_re, path)
+        if m:
+            return (port_fmt if jax_side else jax_fmt).format(*m.groups())
+    return ""
+
+
+def timm_qscales_from_jax(tree: Tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A JAX timm trunk's ``qscales`` tree -> the port's observer buffers."""
+    out = {}
+    for block, convs in tree.items():
+        for conv, leaf in convs.items():
+            name = _timm_observer(f"{block}/{conv}", jax_side=True)
+            if not name or set(leaf) != {"act_max"}:
+                raise KeyError(f"not a timm observer: {block}/{conv}")
+            out[f"{prefix}{name}.act_max"] = _np(leaf["act_max"])
+    return out
+
+
+def timm_qscales_to_flax(flat: Dict, prefix: str = "") -> Tree:
+    """Inverse of ``timm_qscales_from_jax`` (timm trunks are unrolled: one
+    layout)."""
+    tree: Tree = {}
+    for name, v in flat.items():
+        if not name.startswith(prefix):
+            continue
+        rest = name[len(prefix):]
+        path = _timm_observer(rest[: -len(".act_max")], jax_side=False)
+        if not rest.endswith(".act_max") or not path:
+            raise KeyError(f"not a timm observer: {name!r}")
+        block, conv = path.split("/")
+        tree.setdefault(block, {})[conv] = {"act_max": _np(v).reshape(())}
+    return tree
+
+
+def _is_resnet_tree(tree: Tree) -> bool:
+    return "stem_act_max" in tree or any(k.startswith("layer") for k in tree)
+
+
 def qscales_from_jax(qscales: Tree) -> Dict[str, np.ndarray]:
     """The full model's ``qscales`` collection (``{"backbone": ...}``) ->
     the port's ``TubeDETR`` observer buffers by name."""
-    return resnet_qscales_from_jax(qscales["backbone"], BACKBONE_PREFIX)
+    tree = qscales["backbone"]
+    if _is_resnet_tree(tree):
+        return resnet_qscales_from_jax(tree, BACKBONE_PREFIX)
+    return timm_qscales_from_jax(tree, BACKBONE_PREFIX)
 
 
 def resnet_qscales_to_flax(flat: Dict, scanned: bool, prefix: str = "") -> Tree:
@@ -345,7 +526,11 @@ def resnet_qscales_to_flax(flat: Dict, scanned: bool, prefix: str = "") -> Tree:
 
 def qscales_to_flax(flat: Dict, scanned: bool) -> Tree:
     """The port's ``TubeDETR`` observer values -> the JAX model's
-    ``qscales`` collection (what a JAX sidecar holds)."""
+    ``qscales`` collection (what a JAX sidecar holds); ``scanned`` picks a
+    ResNet's layout."""
+    rest = [k[len(BACKBONE_PREFIX):] for k in flat if k.startswith(BACKBONE_PREFIX)]
+    if any(_timm_observer(r[: -len(".act_max")], jax_side=False) for r in rest):
+        return {"backbone": timm_qscales_to_flax(flat, BACKBONE_PREFIX)}
     return {"backbone": resnet_qscales_to_flax(flat, scanned, BACKBONE_PREFIX)}
 
 

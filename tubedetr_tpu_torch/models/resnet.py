@@ -49,6 +49,12 @@ conv1 and conv3 but not the 3x3; ``"save_acts"`` conv1's output too
 recomputed. The policies are selective-checkpoint contexts over the
 block's convolutions; they change what is stored, never a value.
 
+``QConv`` and ``QLinear`` are the JAX ``BottleneckConv`` of the timm
+families (``models/timm.py``): one conv (or timm ``Linear``) in the four
+modes, quantizing its own input with its own ``act_max``; a grouped int8
+conv runs on G1 (``ops/int8_conv.py:grouped_conv2d_int8``). ``QuantTrunk``
+holds the int8 state a ResNet and a timm trunk share.
+
 The calibrated maxima are non-persistent buffers (``stem_act_max``,
 ``layerI.J.conv2.act_max``, ``layerI.J.conv3.act_max``, ``layerI.J.out_max``),
 so the ``state_dict`` keeps the reference grammar; ``interop/from_jax.py``
@@ -76,7 +82,7 @@ from tubedetr_tpu_torch.ops.fused_bottleneck import (
     fused_bottleneck_block,
     quantize_weight,
 )
-from tubedetr_tpu_torch.ops.int8_conv import conv2d_int8
+from tubedetr_tpu_torch.ops.int8_conv import conv2d_int8, grouped_conv2d_int8
 
 BN_EPS = 1e-5
 INT8_MODES = ("int8", "int8_static")
@@ -118,13 +124,9 @@ class Conv2d(nn.Conv2d):
 
     def forward_qat(self, x: torch.Tensor) -> torch.Tensor:
         """The conv on ``x`` (already on the int8 grid) with the weight
-        fake-quantized per out-channel: the scale ``max|w| / 127`` carries
-        no gradient, the rounding a straight-through one."""
-        w = self.weight
-        sw = (torch.clamp_min(w.detach().abs().amax(dim=(1, 2, 3)), 1e-12) / 127.0)[:, None, None, None]
-        wq = torch.clamp(torch.round(w / sw), -127, 127) * sw
+        fake-quantized per out-channel (``fake_quant_weight``)."""
         dt = self.compute_dtype
-        return self._conv_forward(x.to(dt), (w + (wq - w).detach()).to(dt), None)
+        return self._conv_forward(x.to(dt), fake_quant_weight(self.weight).to(dt), None)
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -133,14 +135,19 @@ class FrozenBatchNorm2d(nn.Module):
 
     The four raw buffers keep the reference's names. The fold runs in float32
     and is cast to the activation dtype, as the JAX package does; the model's
-    ``cast_compute`` leaves these buffers in float32."""
+    ``cast_compute`` leaves these buffers in float32. With ``dtype`` (the
+    timm trunks) the fold is cast to that dtype instead and applies in the
+    promotion of it and the activation's: a float32 activation of a bfloat16
+    trunk meets the bfloat16-rounded fold in float32, as flax computes
+    ``x * scale.astype(dtype)``."""
 
-    def __init__(self, n: int):
+    def __init__(self, n: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.register_buffer("weight", torch.ones(n))
         self.register_buffer("bias", torch.zeros(n))
         self.register_buffer("running_mean", torch.zeros(n))
         self.register_buffer("running_var", torch.ones(n))
+        self.fold_dtype = dtype
 
     def fold(self):
         """(scale, shift), float32."""
@@ -149,11 +156,13 @@ class FrozenBatchNorm2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
         scale, shift = self.fold()
-        return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+        dt = self.fold_dtype or x.dtype
+        return x * scale.to(dt)[:, None, None] + shift.to(dt)[:, None, None]
 
     def channels_last(self, x: torch.Tensor) -> torch.Tensor:  # (..., C)
         scale, shift = self.fold()
-        return x * scale.to(x.dtype) + shift.to(x.dtype)
+        dt = self.fold_dtype or x.dtype
+        return x * scale.to(dt) + shift.to(dt)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -207,6 +216,16 @@ def fake_quant(x: torch.Tensor, act_max: torch.Tensor) -> torch.Tensor:
     return xf + (q - xf).detach()
 
 
+def fake_quant_weight(w: torch.Tensor) -> torch.Tensor:
+    """A conv or linear weight (out channels first) fake-quantized per out
+    channel: the scale ``max|w| / 127`` carries no gradient, the rounding a
+    straight-through one."""
+    dims = tuple(range(1, w.dim()))
+    sw = (torch.clamp_min(w.detach().abs().amax(dim=dims), 1e-12) / 127.0).reshape(-1, *[1] * len(dims))
+    wq = torch.clamp(torch.round(w / sw), -127, 127) * sw
+    return w + (wq - w).detach()
+
+
 def quantize_act(x: torch.Tensor, act_max: torch.Tensor, mode: str, observe: bool):
     """Per-tensor symmetric int8 of a float activation -> (int8, f32 scale).
 
@@ -236,13 +255,15 @@ def _same_key(a, b) -> bool:
         x[0] is y[0] and x[1:] == y[1:] for x, y in zip(a, b))
 
 
-def _int8_weight(conv: nn.Conv2d):
-    """(wq (O, kh*kw*I) int8, sw (O,) f32) of ``conv``, quantized from the
-    float weight it holds now and cached on the module for that weight."""
+def _int8_weight(conv: nn.Module):
+    """(wq (O, kh*kw*I) int8, sw (O,) f32) of ``conv`` (an ``nn.Conv2d``, or
+    an ``nn.Linear`` as a 1x1 conv), quantized from the float weight it
+    holds now and cached on the module for that weight."""
     key = _weights_key(conv.weight)
     cached = getattr(conv, "_int8", None)
     if cached is None or not _same_key(cached[0], key):
-        hwio = conv.weight.detach().float().permute(2, 3, 1, 0)
+        w = conv.weight.detach().float()
+        hwio = w.permute(2, 3, 1, 0) if w.dim() == 4 else w.t()[None, None]
         wq, sw = quantize_weight(hwio)
         cached = (key, wq.permute(3, 0, 1, 2).reshape(wq.shape[3], -1).contiguous(), sw)
         conv._int8 = cached
@@ -254,6 +275,141 @@ def qconv(conv: nn.Conv2d, xq: torch.Tensor, sx: torch.Tensor, dtype) -> torch.T
     wq, sw = _int8_weight(conv)
     acc = conv2d_int8(xq, wq, conv.kernel_size[0], conv.stride[0], conv.dilation[0])
     return (acc.float() * (sx * sw)).to(dtype)
+
+
+class Float32Conv(nn.Conv2d):
+    """A flax ``nn.Conv`` built without ``dtype`` over float32 parameters:
+    its input promotes to float32, so a bfloat16 activation meets a float32
+    conv (the timm trunks' stems, SE projections and float convs)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x.float(), self.weight.float(),
+                                  None if self.bias is None else self.bias.float())
+
+
+def _qforward(module: nn.Module, xh: torch.Tensor, mode: str, observe: bool, k: int = 1,
+              stride: int = 1, groups: int = 1) -> torch.Tensor:
+    """The int8 conv of ``module`` (its weight, bias and ``act_max``) on an
+    NHWC activation: quantize (``quantize_act``), s8 x s8 -> s32 (G1 for
+    ``groups > 1``, else ``conv2d_int8``), the fold ``(acc.f32 * (sx *
+    sw)).to(dtype)``, then the bias in ``dtype``."""
+    q, s = quantize_act(xh, module.act_max, mode, observe)
+    wq, sw = _int8_weight(module)
+    conv = conv2d_int8 if groups == 1 else partial(grouped_conv2d_int8, groups=groups)
+    y = (conv(q.contiguous(), wq, k, stride).float() * (s * sw)).to(module.compute_dtype)
+    return y if module.bias is None else y + module.bias.to(y.dtype)
+
+
+class QConv(Float32Conv):
+    """The JAX ``BottleneckConv`` of the timm families: a conv with
+    ``groups``, an optional bias, stride and zero padding ``k // 2``, and,
+    with ``observer``, its own non-persistent ``act_max``. ``forward(x,
+    mode)`` on an NCHW view:
+
+    * ``none``: the float conv, in float32 (``Float32Conv``);
+    * ``int8`` / ``int8_static``: the input quantized per tensor, the
+      weight per out channel (``_int8_weight``, cached), ``_qforward``;
+    * ``int8_qat``: input and weight fake-quantized (straight-through
+      gradients), the conv in ``dtype``, then the bias in ``dtype``."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, groups: int = 1,
+                 bias: bool = False, observer: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout, k, stride=stride, padding=k // 2, groups=groups, bias=bias)
+        self.compute_dtype = dtype
+        if observer:
+            _observer(self)
+
+    def forward(self, x: torch.Tensor, mode: str = "none", observe: bool = False) -> torch.Tensor:
+        if mode == "none":
+            return super().forward(x)
+        if mode == "int8_qat":
+            dt = self.compute_dtype
+            y = self._conv_forward(fake_quant(x, self.act_max).to(dt),
+                                   fake_quant_weight(self.weight).to(dt), None)
+            return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
+        return _qforward(self, x.permute(0, 2, 3, 1), mode, observe, self.kernel_size[0],
+                         self.stride[0], self.groups).permute(0, 3, 1, 2)
+
+
+class QLinear(nn.Linear):
+    """``QConv`` as a timm ``Linear`` (ConvNeXt's ``mlp.fc1``/``fc2``, a
+    1x1 conv in the JAX package) over channels-last ``(..., C)``."""
+
+    def __init__(self, cin: int, cout: int, observer: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout)
+        self.compute_dtype = dtype
+        if observer:
+            _observer(self)
+
+    def forward(self, x: torch.Tensor, mode: str = "none", observe: bool = False) -> torch.Tensor:
+        if mode == "none":
+            return F.linear(x.float(), self.weight.float(), self.bias.float())
+        if mode == "int8_qat":
+            dt = self.compute_dtype
+            y = F.linear(fake_quant(x, self.act_max).to(dt), fake_quant_weight(self.weight).to(dt))
+            return y + self.bias.to(dt)
+        return _qforward(self, x, mode, observe)
+
+
+class QuantTrunk:
+    """The int8 state every trunk holds (a mixin of ``nn.Module`` trunks
+    with ``observers``, ``quant`` and ``observe`` attributes): the
+    calibrated maxima are the buffers named ``OBSERVERS``, the int8 weights
+    and K2 folds are caches on the modules."""
+
+    def float32_modules(self):
+        """The modules whose parameters ``TubeDETR.cast_compute`` keeps in
+        float32 (the ones a forward does not cast to the compute dtype)."""
+        return self.int8_convs()
+
+    def clear_int8_cache(self) -> None:
+        """Drop the cached int8 weights and K2 folds (new weights or scales)."""
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                m._int8 = None
+            elif isinstance(m, Bottleneck):
+                m._fold = None
+
+    def qscales(self, prefix: str = "") -> Dict[str, torch.Tensor]:
+        """The calibrated maxima by buffer name."""
+        return {f"{prefix}{k}": v for k, v in self.named_buffers()
+                if k.rsplit(".", 1)[-1] in OBSERVERS}
+
+    def load_qscales(self, qscales: Dict, prefix: str = "") -> None:
+        """Set every calibrated maximum from ``qscales`` (names as
+        ``qscales()`` gives them); the key sets must match."""
+        own = self.qscales(prefix)
+        if set(own) != set(qscales):
+            raise KeyError(
+                f"qscales do not match the trunk: missing {sorted(set(own) - set(qscales))[:5]}, "
+                f"unexpected {sorted(set(qscales) - set(own))[:5]}"
+            )
+        with torch.no_grad():
+            for k, buf in own.items():
+                v = qscales[k]
+                buf.fill_(v.item() if torch.is_tensor(v) else float(np.asarray(v).reshape(())))
+        self.clear_int8_cache()
+
+    @contextmanager
+    def calibrating(self, mode: str = "int8"):
+        """Run the trunk in ``mode`` (its dynamic-observer twin: ``int8``, or
+        ``none`` for a float trunk whose other passes run ``int8``) with the
+        observers on inside: the maxima start at 0 and each int8 forward
+        raises them to what it sees."""
+        if not self.observers:
+            raise ValueError("the float trunk has no quantization observers")
+        saved = self.quant
+        with torch.no_grad():
+            for buf in self.qscales().values():
+                buf.zero_()
+        self.quant, self.observe = mode, True
+        try:
+            yield self
+        finally:
+            self.quant, self.observe = saved, False
+            self.clear_int8_cache()
 
 
 class Bottleneck(nn.Module):
@@ -343,10 +499,12 @@ class Bottleneck(nn.Module):
         return quantize_act(F.relu(out + identity), self.out_max, mode, observe)
 
 
-class ResNet(nn.Module):
+class ResNet(QuantTrunk, nn.Module):
     """Trunk returning the layer4 map: stride 32, 2048 channels (stride 16
     with ``dilation``, the DC5 variant: layer4 keeps stride 1 and dilates its
     3x3 convs by 2, its first block keeping the previous dilation of 1)."""
+
+    out_channels = 2048
 
     def __init__(self, arch: str = "resnet101", dilation: bool = False,
                  quant: str = "none", fused_blocks: bool = False, remat: bool = False,
@@ -468,53 +626,6 @@ class ResNet(nn.Module):
         if not self.observers:
             return []
         return [m for b in self.blocks() for m in b.modules() if isinstance(m, nn.Conv2d)]
-
-    def clear_int8_cache(self) -> None:
-        """Drop the cached int8 weights and K2 folds (new weights or scales)."""
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                m._int8 = None
-            elif isinstance(m, Bottleneck):
-                m._fold = None
-
-    def qscales(self, prefix: str = "") -> Dict[str, torch.Tensor]:
-        """The calibrated maxima by buffer name."""
-        return {f"{prefix}{k}": v for k, v in self.named_buffers()
-                if k.rsplit(".", 1)[-1] in OBSERVERS}
-
-    def load_qscales(self, qscales: Dict, prefix: str = "") -> None:
-        """Set every calibrated maximum from ``qscales`` (names as
-        ``qscales()`` gives them); the key sets must match."""
-        own = self.qscales(prefix)
-        if set(own) != set(qscales):
-            raise KeyError(
-                f"qscales do not match the trunk: missing {sorted(set(own) - set(qscales))[:5]}, "
-                f"unexpected {sorted(set(qscales) - set(own))[:5]}"
-            )
-        with torch.no_grad():
-            for k, buf in own.items():
-                v = qscales[k]
-                buf.fill_(v.item() if torch.is_tensor(v) else float(np.asarray(v).reshape(())))
-        self.clear_int8_cache()
-
-    @contextmanager
-    def calibrating(self, mode: str = "int8"):
-        """Run the trunk in ``mode`` (its dynamic-observer twin: ``int8``, or
-        ``none`` for a float trunk whose other passes run ``int8``) with the
-        observers on inside: the maxima start at 0 and each int8 forward
-        raises them to what it sees."""
-        if not self.observers:
-            raise ValueError("the float trunk has no quantization observers")
-        saved = self.quant
-        with torch.no_grad():
-            for buf in self.qscales().values():
-                buf.zero_()
-        self.quant, self.observe = mode, True
-        try:
-            yield self
-        finally:
-            self.quant, self.observe = saved, False
-            self.clear_int8_cache()
 
     @staticmethod
     def feature_hw(h: int, w: int, dilation: bool = False):

@@ -1,8 +1,9 @@
 """TubeDETR (counterpart of ``tubedetr_tpu/models/tubedetr.py``).
 
 Module names follow the reference ``state_dict`` grammar: ``backbone.0.body.*``
-(the ResNet trunk), ``transformer.*`` (text encoder, encoder, decoder, fast
-branch), ``input_proj`` (a 1x1 conv), ``query_embed``, ``bbox_embed`` and
+(the trunk: a ResNet with torchvision's names, or a timm family's with
+timm's, ``models/timm.py``), ``transformer.*`` (text encoder, encoder,
+decoder, fast branch), ``input_proj`` (a 1x1 conv), ``query_embed``, ``bbox_embed`` and
 ``sted_embed`` (and ``objectness_embed`` when ``num_queries > 1``); a
 reference ``.pth`` loads as it is (``train/checkpoint.py:
 load_pretrained``). Inputs are normalized NHWC frames plus masks, as
@@ -23,10 +24,11 @@ pass between the streams (``share_backbone_inference``). The fast pass runs
 the trunk in ``backbone_quant_fast`` and the slow pass its stem and layer1
 in ``backbone_quant_frozen`` when those are set, on the same weights and
 observers (the reused every-k-th fast features stay the float slow ones);
-the shared inference pass runs neither. The stem and
-layer1 are always frozen, the whole trunk with ``freeze_backbone`` or
-``lr_backbone <= 0``, and the text encoder with ``freeze_text_encoder``
-(which also keeps it in eval mode and out of the graph).
+the shared inference pass runs neither. A ResNet's stem and layer1 are
+always frozen (a timm trunk has no frozen prefix), the whole trunk with
+``freeze_backbone`` or ``lr_backbone <= 0``, and the text encoder with
+``freeze_text_encoder`` (which also keeps it in eval mode and out of the
+graph).
 
 Mixed precision is the JAX package's: parameters, gradients, optimizer
 state and the EMA stay float32, and the model computes in
@@ -66,6 +68,7 @@ from tubedetr_tpu_torch.core.sharding import gather_frames, local_frames
 from tubedetr_tpu_torch.models.layers import MLP, LayerNorm, dense, sigmoid
 from tubedetr_tpu_torch.models.resnet import GroupNorm, ResNet
 from tubedetr_tpu_torch.models.roberta import RobertaConfig
+from tubedetr_tpu_torch.models.timm import timm_trunk_class
 from tubedetr_tpu_torch.models.transformer import TubeDETRTransformer
 from tubedetr_tpu_torch.utils.device import resolve_device
 
@@ -75,7 +78,7 @@ COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class _Backbone(nn.Module):
     """Holds the trunk as ``body``, the reference's ``backbone.0.body`` path."""
 
-    def __init__(self, body: ResNet):
+    def __init__(self, body: nn.Module):
         super().__init__()
         self.body = body
 
@@ -101,12 +104,8 @@ class TubeDETR(nn.Module):
         self.cfg = cfg
         d = cfg.hidden_dim
         dtype = self.compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
-        self.backbone = nn.ModuleList([_Backbone(ResNet(
-            cfg.backbone, cfg.dilation, quant=cfg.backbone_quant,
-            fused_blocks=cfg.fused_bottleneck, remat=cfg.remat_backbone,
-            remat_policy=cfg.remat_policy, dtype=dtype, observers=trunk_observers(cfg),
-        ))])
-        self.input_proj = PointwiseConv(2048, d, dtype)
+        self.backbone = nn.ModuleList([_Backbone(build_trunk(cfg, dtype))])
+        self.input_proj = PointwiseConv(self.backbone[0].body.out_channels, d, dtype)
         self.query_embed = nn.Embedding(cfg.num_queries, d)
         self.transformer = TubeDETRTransformer(
             d_model=d,
@@ -162,11 +161,13 @@ class TubeDETR(nn.Module):
         to it at use, for serving and evaluation (no training step follows):
         the result is the same, bit for bit. The others stay float32, as they
         are used: the LayerNorm and GroupNorm affines (float32 statistics),
-        ``query_embed`` (added in float32 to the time embedding), and the
-        int8 trunk's conv weights, quantized from float32 as the JAX package
-        quantizes its float32 kernels; FrozenBN statistics and the calibrated
-        maxima are buffers and stay float32 too."""
-        keep = set(map(id, self.backbone[0].body.int8_convs()))
+        ``query_embed`` (added in float32 to the time embedding), the int8
+        trunk's conv weights, quantized from float32 as the JAX package
+        quantizes its float32 kernels, and every weight of a timm trunk (its
+        float convs compute in float32: the trunk's ``float32_modules``);
+        FrozenBN statistics and the calibrated maxima are buffers and stay
+        float32 too."""
+        keep = set(map(id, self.backbone[0].body.float32_modules()))
         for m in self.modules():
             if isinstance(m, (LayerNorm, GroupNorm)) or id(m) in keep:
                 continue
@@ -176,10 +177,11 @@ class TubeDETR(nn.Module):
         return self
 
     def pass_modes(self, fast: bool) -> dict:
-        """The trunk's per-call modes of a training pass (``ResNet.forward``'s
-        keywords): the fast pass in ``backbone_quant_fast``, the slow pass
-        with its stem and layer1 in ``backbone_quant_frozen``; none where
-        unset."""
+        """The trunk's per-call modes of a training pass (the trunk's
+        ``forward`` keywords): the fast pass in ``backbone_quant_fast``, the
+        slow pass with a ResNet's stem and layer1 in
+        ``backbone_quant_frozen`` (which ``validate`` refuses on a timm
+        trunk); none where unset."""
         cfg = self.cfg
         if fast:
             return {"quant": cfg.backbone_quant_fast} if cfg.backbone_quant_fast != "none" else {}
@@ -188,7 +190,7 @@ class TubeDETR(nn.Module):
         return {}
 
     def backbone_feats(self, frames: torch.Tensor, **modes) -> torch.Tensor:
-        """The trunk over a flat (N, H, W, 3) frame batch -> (N, h, w, 2048),
+        """The trunk over a flat (N, H, W, 3) frame batch -> (N, h, w, C),
         in the per-call ``modes`` (``pass_modes``). With a ``time_group``
         each of its ranks runs the trunk on its share of the N frames and
         the shares are all-gathered (``core/sharding.py``)."""
@@ -205,7 +207,7 @@ class TubeDETR(nn.Module):
         return self.project_frames(self.backbone_feats(frames), pad_mask)
 
     def project_frames(self, feats: torch.Tensor, pad_mask: torch.Tensor):
-        """Projection + masks over (N, h, w, 2048) trunk features.
+        """Projection + masks over (N, h, w, C) trunk features.
 
         Returns tokens (N, h*w, D), feature pad mask (N, h*w) and the
         position embedding (N, h*w, D); ``pad_mask`` is the (N, H, W) pixel
@@ -331,7 +333,7 @@ class TubeDETR(nn.Module):
 
 
     def _fast_feats(self, frames_fast: torch.Tensor, slow_feats: torch.Tensor, tc: int):
-        """Trunk features of every fast frame, (B*T, h, w, 2048), without
+        """Trunk features of every fast frame, (B*T, h, w, C), without
         gradients. With ``share_backbone_train`` every k-th frame reuses its
         slow feature (collate builds ``slow = fast[::k]``) and the trunk runs
         on the other k-1 of every k; the frame axis is padded to ``tc*k`` so
@@ -360,11 +362,23 @@ class TubeDETR(nn.Module):
 def trunk_observers(cfg: TubeDETRConfig) -> str:
     """The observers the trunk of ``cfg`` holds, as the JAX package's
     ``qscales`` tree has them: every one when the trunk or its fast pass
-    may run quantized, the stem's and layer1's when only the frozen prefix
-    does, none for a float model."""
+    may run quantized, a ResNet's stem's and layer1's when only the frozen
+    prefix does, none for a float model."""
     if cfg.backbone_quant != "none" or cfg.backbone_quant_fast != "none":
         return "all"
     return "prefix" if cfg.backbone_quant_frozen != "none" else ""
+
+
+def build_trunk(cfg: TubeDETRConfig, dtype: torch.dtype) -> nn.Module:
+    """The trunk ``cfg.backbone`` names: a timm family's (``--dilation``,
+    the remat flags and ``fused_bottleneck`` do not reach it, as in the JAX
+    package) or a ResNet; ``out_channels`` is its feature width."""
+    if cfg.backbone.startswith("timm_"):
+        cls, arch = timm_trunk_class(cfg.backbone)
+        return cls(arch, quant=cfg.backbone_quant, dtype=dtype, observers=trunk_observers(cfg))
+    return ResNet(cfg.backbone, cfg.dilation, quant=cfg.backbone_quant,
+                  fused_blocks=cfg.fused_bottleneck, remat=cfg.remat_backbone,
+                  remat_policy=cfg.remat_policy, dtype=dtype, observers=trunk_observers(cfg))
 
 
 def build_model(cfg: TubeDETRConfig, device="cuda") -> TubeDETR:

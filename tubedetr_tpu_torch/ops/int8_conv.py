@@ -1,4 +1,4 @@
-"""s8 x s8 -> s32 convolutions for the unfused int8 bottleneck blocks.
+"""s8 x s8 -> s32 convolutions for the unfused int8 trunks.
 
 Counterpart of the XLA ``conv_general_dilated(int8, int8,
 preferred_element_type=int32)`` in ``tubedetr_tpu/models/resnet.py``
@@ -15,12 +15,27 @@ Pallas kernel, so here they are a library product: ``torch._int_mm``
 Weights arrive as ``(O, K)`` contiguous int8 and enter the product as the
 transposed view ``(K, O)``: the column-major second operand cuBLASLt's int8
 GEMM takes without a copy.
+
+A grouped conv (the timm trunks' depthwise and grouped 3x3 convs, XLA's
+``feature_group_count``) does not fit that product: a depthwise group has
+one output channel, and ``torch._int_mm`` on the card wants K and N in
+multiples of 8. PyTorch has no int8 grouped convolution (cuDNN's float32
+one on the same integers is exact at these shapes: it is G1's yardstick,
+faster on the depthwise shapes, slower on 4- to 48-wide groups), so
+``grouped_conv2d_int8`` launches G1, the hand-written kernel of
+``csrc/grouped_conv_s8.cu``, on a CUDA tensor (it raises on what the kernel
+does not take) and runs its plain version, ``grouped_conv2d_int8_plain``, on
+a CPU tensor. Its ``launches`` counter counts the kernel's launches.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 from torch.nn import functional as F
+
+from tubedetr_tpu_torch.ops import _cuda_build
 
 _CUDA_MIN_ROWS = 17  # torch._int_mm on CUDA needs more than 16 rows
 
@@ -69,3 +84,81 @@ def conv2d_int8(xq: torch.Tensor, wq: torch.Tensor, k: int, stride: int = 1,
         raise ValueError(f"input gives {kk} taps*channels, the kernel takes {wq.shape[1]}")
     acc = int_mm(cols.reshape(n * ho * wo, kk), wq.t())
     return acc.reshape(n, ho, wo, wq.shape[0])
+
+
+def _grouped_shapes(xq: torch.Tensor, wq: torch.Tensor, k: int, stride: int, groups: int):
+    """(Ho, Wo) of the grouped conv, after checking what both versions take."""
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise ValueError(f"expected int8 operands, got {xq.dtype} and {wq.dtype}")
+    if xq.dim() != 4 or wq.dim() != 2:
+        raise ValueError(f"expected (N, H, W, C) and (O, k*k*C/groups), got "
+                         f"{tuple(xq.shape)} and {tuple(wq.shape)}")
+    n, h, w, c = xq.shape
+    o = wq.shape[0]
+    if groups < 1 or c % groups or o % groups:
+        raise ValueError(f"{groups} groups do not divide {c} input and {o} output channels")
+    if k < 1 or k % 2 == 0 or stride not in (1, 2):
+        raise ValueError(f"kernel {k} and stride {stride}: expected an odd k and stride 1 or 2")
+    if wq.shape[1] != k * k * (c // groups):
+        raise ValueError(f"the kernel takes {wq.shape[1]} taps*channels, the input gives "
+                         f"{k * k * (c // groups)} a group")
+    pad = k // 2
+    return (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+
+
+def grouped_conv2d_int8_plain(xq: torch.Tensor, wq: torch.Tensor, k: int, stride: int = 1,
+                              groups: int = 1) -> torch.Tensor:
+    """G1's plain version: the grouped conv in floating point, whose integer
+    products and partial sums (at most ``k*k*C/groups * 127^2``) it holds
+    exactly, rounded back to int32. On the CPU that is float32 while the
+    sums stay below 2^24 (every timm conv: 432 terms at most), which
+    oneDNN's direct conv runs about 100x faster than float64; on the card,
+    float64, whose error stays far below 0.5 whatever algorithm cuDNN
+    picks."""
+    _grouped_shapes(xq, wq, k, stride, groups)
+    o, c = wq.shape[0], xq.shape[3]
+    exact32 = k * k * (c // groups) * 127 * 127 < 2 ** 24
+    dt = torch.float32 if xq.device.type == "cpu" and exact32 else torch.float64
+    weight = wq.to(dt).reshape(o, k, k, c // groups).permute(0, 3, 1, 2)
+    y = F.conv2d(xq.to(dt).permute(0, 3, 1, 2), weight, stride=stride, padding=k // 2,
+                 groups=groups)
+    return y.permute(0, 2, 3, 1).round().to(torch.int32).contiguous()
+
+
+def _launch_g1(xq, wq, out, k: int, stride: int, groups: int) -> None:
+    fn = _cuda_build.load("grouped_conv_s8").grouped_conv_s8
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    n, h, w, c = xq.shape
+    _, ho, wo, o = out.shape
+    err = fn(xq.data_ptr(), wq.data_ptr(), out.data_ptr(), n, h, w, c, o, k, stride, groups,
+             ho, wo, torch.cuda.current_stream(xq.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"grouped_conv_s8 kernel launch failed: CUDA error {err}")
+
+
+def grouped_conv2d_int8(xq: torch.Tensor, wq: torch.Tensor, k: int, stride: int = 1,
+                        groups: int = 1) -> torch.Tensor:
+    """``(N, H, W, C)`` int8 conv ``wq`` (``(O, k*k*C/groups)`` int8, taps
+    in (ky, kx, c) order), zero padding ``k // 2``, ``groups`` groups ->
+    ``(N, Ho, Wo, O)`` int32: G1 on the card, its plain version on the CPU."""
+    ho, wo = _grouped_shapes(xq, wq, k, stride, groups)
+    if xq.device.type == "cpu" and wq.device.type == "cpu":
+        return grouped_conv2d_int8_plain(xq, wq, k, stride, groups)
+    if xq.device.type != "cuda" or wq.device != xq.device:
+        raise ValueError(f"unsupported devices {xq.device} and {wq.device}")
+    if not (xq.is_contiguous() and wq.is_contiguous()):
+        raise ValueError("G1 takes contiguous (N, H, W, C) inputs and (O, K) weights")
+    if (wq.shape[1] // (k * k)) % 4 == 0 and (xq.data_ptr() % 4 or wq.data_ptr() % 4):
+        raise ValueError("G1 reads 4 channels a word: the bases must be 4-byte aligned")
+    if -(-wo * wq.shape[0] // 256) > 65535:
+        raise ValueError(f"an output row of {wo} x {wq.shape[0]} is too wide for G1's grid")
+    out = torch.empty((xq.shape[0], ho, wo, wq.shape[0]), dtype=torch.int32, device=xq.device)
+    with torch.cuda.device(xq.device):
+        _launch_g1(xq, wq, out, k, stride, groups)
+    grouped_conv2d_int8.launches += 1
+    return out
+
+
+grouped_conv2d_int8.launches = 0

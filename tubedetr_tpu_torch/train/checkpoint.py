@@ -17,8 +17,9 @@ time-embedding buffer dropped, the reference's learned position grid
 ``--rd_init_tsa`` keeping the decoder's temporal self-attention at init,
 and the rest merged non-strictly. A trunk's norms are GroupNorm when the
 checkpoint has no ``bn1.running_mean`` (as the JAX package's
-``convert_resnet`` reads it); a checkpoint whose norms are not the
-model's is refused. A JAX
+``convert_resnet`` reads it); a checkpoint whose trunk family (ResNet,
+EfficientNet, RegNet, ConvNeXt: ``interop/from_jax.py:trunk_family``) or
+norms are not the model's is refused. A JAX
 package checkpoint (a ``.ckpt`` pickle or an orbax directory) is refused:
 its ``opt_state`` unpickles only with ``optax`` installed.
 """
@@ -34,6 +35,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from tubedetr_tpu_torch.interop.from_jax import trunk_family
 
 JAX_CHECKPOINT_HELP = (
     "not a torch.save zip file. A JAX package checkpoint (a .ckpt pickle or an orbax "
@@ -59,8 +62,10 @@ def warm_start_surgery(sd: Dict, num_queries: int) -> Dict:
 
 
 def trunk_norm(sd: Dict) -> Optional[str]:
-    """'gn' or 'frozen_bn' for the trunk a ``state_dict`` holds (GroupNorm
-    has no running statistics), None without a trunk."""
+    """'gn' or 'frozen_bn' for the norm of the trunk's ``bn1`` a
+    ``state_dict`` holds (GroupNorm has no running statistics; an
+    EfficientNet's ``bn1`` is a FrozenBN), None without one (no trunk, a
+    RegNet, a ConvNeXt)."""
     if "backbone.0.body.bn1.weight" not in sd:
         return None
     return "frozen_bn" if "backbone.0.body.bn1.running_mean" in sd else "gn"
@@ -194,7 +199,11 @@ def load_pretrained(model: torch.nn.Module, path_or_ckpt, rd_init_tsa: bool = Fa
     sd = (load_torch_state_dict(path_or_ckpt) if isinstance(path_or_ckpt, str)
           else preferred_state_dict(path_or_ckpt))
     sd = warm_start_surgery(sd, model.query_embed.weight.shape[0])
-    have, want = trunk_norm(sd), trunk_norm(model.state_dict())
+    own = model.state_dict()
+    have, want = trunk_family(sd), trunk_family(own)
+    if have and have != want:
+        raise ValueError(f"the checkpoint holds a {have} trunk, the model a {want} one")
+    have, want = trunk_norm(sd), trunk_norm(own)
     if have is not None and have != want:
         raise ValueError(f"the checkpoint's trunk norms are {have}, the model's {want} "
                          "(a -gn backbone loads a GroupNorm checkpoint)")

@@ -3033,6 +3033,7 @@ def phase_dist(smi: str):
 TIMM_BACKBONES = ("timm_efficientnet_b0", "timm_regnety_008", "timm_convnext_tiny")
 G1_PER_PASS = {"timm_efficientnet_b0": 16, "timm_regnety_008": 14, "timm_convnext_tiny": 0}
 G1_FRAMES = 200  # one request's frames: G1 is checked and timed at this batch
+G1_SHAPES = 19  # distinct G1 call shapes of the B0 and RegNetY-008 serving legs
 # the stems' parameters, which must move in a training step whatever their gradient
 TIMM_STEMS = tuple(f"backbone.0.body.{n}" for n in (
     "conv_stem.weight", "stem.conv.weight", "stem.0.weight", "stem.0.bias", "stem.1.weight",
@@ -3041,10 +3042,11 @@ TIMM_STEMS = tuple(f"backbone.0.body.{n}" for n in (
 
 class G1Capture:
     """Inside, the timm trunks' G1 calls go through a wrapper that keeps the
-    first ``G1_FRAMES`` frames of the input and the weights of each distinct
-    call shape, with how many launches of that shape a trunk pass makes (the
-    wrapped function still counts each launch); ``phase_g1`` then holds G1
-    to its plain version on those real inputs and times it."""
+    first ``G1_FRAMES`` frames of the input, the weights and the scales of
+    each distinct call shape and dtype, with how many launches of that shape
+    a trunk pass makes (the wrapped function still counts each launch);
+    ``phase_g1`` then holds G1 to its plain version on those real inputs and
+    times it."""
 
     def __init__(self, seen: dict, backbone: str):
         self.seen, self.backbone = seen, backbone
@@ -3055,14 +3057,16 @@ class G1Capture:
         self.module, self.orig = resnet, resnet.grouped_conv2d_int8
         self.calls = 0
 
-        def capture(xq, wq, k, stride=1, groups=1):
-            key = (self.backbone, *xq.shape[1:], wq.shape[0], k, stride, groups)
+        def capture(xq, wq, k, stride, groups, scale, dtype):
+            key = (self.backbone, *xq.shape[1:], wq.shape[0], k, stride, groups,
+                   str(dtype).replace("torch.", ""))
             if key not in self.seen:
-                self.seen[key] = {"xq": xq[:G1_FRAMES].clone(), "wq": wq.clone(), "per_pass": 0}
+                self.seen[key] = {"xq": xq[:G1_FRAMES].clone(), "wq": wq.clone(),
+                                  "scale": scale.clone(), "per_pass": 0}
             if self.calls < G1_PER_PASS[self.backbone]:  # the first pass's launches
                 self.seen[key]["per_pass"] += 1
             self.calls += 1
-            return self.orig(xq, wq, k, stride, groups)
+            return self.orig(xq, wq, k, stride, groups, scale, dtype)
 
         resnet.grouped_conv2d_int8 = capture
         return self
@@ -3117,56 +3121,79 @@ def timm_serve(label: str, cfg, reqs, backbone: str, g1_seen: dict):
     return line, launches
 
 
+def g1_instance(mangled: str) -> str:
+    """``dw_kernel<5,2,1,1>`` for G1's mangled kernel name: the template
+    arguments (k, s, vector staging, bfloat16 out; the n8 tiles and
+    bfloat16 out of the grouped kernel; 4-channel words and bfloat16 out of
+    the direct one)."""
+    import re
+
+    m = re.search(r"(dw_kernel|grouped_mma_kernel|direct_kernel)I(.*?)EEv", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"L[ib](\d+)", m.group(2))
+    return m.group(1) + "<" + ",".join(args) + ">"
+
+
 def phase_g1(seen: dict) -> dict:
     """G1 on the inputs the int8 serving legs gave it, cut to one request's
-    ``G1_FRAMES`` frames: exactly its plain version at every shape, then
-    timed (CUDA events) beside the plain version and the library call: a
-    float32 cuDNN grouped conv on the int8 values (TF32 off), the cast in
-    and the rounding to int32 out included, held to the plain version too.
-    Its products and sums are integers below 2^24, so float32 holds them
-    exactly; where it did not agree, the library call is the float64 one,
-    the plain version. Returns the kernels-line entry, summed over one
-    EfficientNet-B0 trunk pass."""
+    ``G1_FRAMES`` frames, in the serving dtype: exactly its plain version
+    (the float64 grouped conv rounded to int32, then the fold) at every
+    shape, then timed (CUDA events) beside the plain version and the library
+    call for the same folded function: a float32 cuDNN grouped conv on the
+    int8 values (TF32 off), the cast in, the rounding and the fold out
+    included, held to the plain version too. Its products and sums are
+    integers below 2^24, so float32 holds them exactly; where it did not
+    agree, the library call is the float64 one, the plain version. The bound
+    counts the int8 input and weights, the scales and the folded output.
+    Returns the kernels-line entry, summed over one EfficientNet-B0 trunk
+    pass."""
     import torch
     from torch.nn import functional as F
 
-    from tubedetr_tpu_torch.ops.int8_conv import grouped_conv2d_int8, grouped_conv2d_int8_plain
+    from tubedetr_tpu_torch.ops import _cuda_build
+    from tubedetr_tpu_torch.ops.int8_conv import (
+        g1_path,
+        grouped_conv2d_int8,
+        grouped_conv2d_int8_plain,
+    )
     from tubedetr_tpu_torch.probes import cuda_ms
 
     torch.backends.cudnn.allow_tf32 = False  # as the port sets it (utils/device.py)
     cases = {}
     for key, v in sorted(seen.items()):
-        backbone, h, w, c, o, k, stride, groups = key
-        xq, wq = v["xq"], v["wq"]
+        backbone, h, w, c, o, k, stride, groups, dtype_name = key
+        xq, wq, scale, dtype = v["xq"], v["wq"], v["scale"], getattr(torch, dtype_name)
+        args = (xq, wq, k, stride, groups, scale, dtype)
         before = grouped_conv2d_int8.launches
-        out = grouped_conv2d_int8(xq, wq, k, stride, groups)
-        ref = grouped_conv2d_int8_plain(xq, wq, k, stride, groups)
+        out = grouped_conv2d_int8(*args)
+        ref = grouped_conv2d_int8_plain(*args)
         err = (out.double() - ref.double()).abs().max().item()
         grouped_conv2d_int8.launches = before  # a check, not the main path
         if err != 0 or not torch.equal(out, ref):
             fail(f"G1 {key}: differs from its plain version, max |err| {err}")
         n, ho, wo, _ = out.shape
-        nbytes = xq.numel() + wq.numel() + 4 * out.numel()
+        nbytes = xq.numel() + wq.numel() + 4 * scale.numel() + out.element_size() * out.numel()
         ops = 2 * out.numel() * wq.shape[1]
         bound_ms, bound_by = bound(nbytes, ops, INT8_OPS_PER_S)
         # the weights as a library route would keep them (cached, like _int8_weight's)
         wf = wq.float().reshape(o, k, k, c // groups).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
+        sc = scale.view(1, o, 1, 1)
 
-        def library(xq=xq, wf=wf, k=k, stride=stride, groups=groups):
-            # NCHW view of NHWC memory (channels_last) in, NHWC int32 out
+        def library(xq=xq, wf=wf, sc=sc, k=k, stride=stride, groups=groups, dtype=dtype):
+            # NCHW view of NHWC memory (channels_last) in, NHWC out
             y = F.conv2d(xq.float().permute(0, 3, 1, 2), wf, stride=stride, padding=k // 2,
                          groups=groups)
-            return y.round_().to(torch.int32).permute(0, 2, 3, 1)
+            return y.round_().mul_(sc).to(dtype).permute(0, 2, 3, 1)
 
         lib_err = (library().double() - ref.double()).abs().max().item()
-        name = f"{backbone[5:]}:{n}x{h}x{w}x{c}/k{k}s{stride}g{groups}"
+        name = f"{backbone[5:]}:{n}x{h}x{w}x{c}/k{k}s{stride}g{groups}/{dtype_name}"
         cases[name] = {
-            "backbone": backbone, "per_pass": v["per_pass"], "max_abs_err": err,
-            "ms": cuda_ms(lambda: grouped_conv2d_int8(xq, wq, k, stride, groups),
-                          groups=7, per_group=3),
-            "plain_ms": cuda_ms(lambda: grouped_conv2d_int8_plain(xq, wq, k, stride, groups),
-                                groups=3, per_group=1),
+            "backbone": backbone, "path": g1_path(xq, wq, k, stride, groups),
+            "per_pass": v["per_pass"], "max_abs_err": err,
+            "ms": cuda_ms(lambda: grouped_conv2d_int8(*args), groups=7, per_group=3),
+            "plain_ms": cuda_ms(lambda: grouped_conv2d_int8_plain(*args), groups=3, per_group=1),
             "cudnn_f32_max_abs_err": lib_err,
             "cudnn_f32_ms": cuda_ms(library, groups=5, per_group=2),
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -3174,20 +3201,26 @@ def phase_g1(seen: dict) -> dict:
         exact = lib_err == 0
         cases[name]["library"] = "float32 cuDNN" if exact else "float64 cuDNN (the plain version)"
         cases[name]["library_ms"] = cases[name]["cudnn_f32_ms" if exact else "plain_ms"]
+        cases[name]["of_bound"] = bound_ms / cases[name]["ms"]
         grouped_conv2d_int8.launches = before
         print(f"[g1] {name}: {json.dumps(cases[name])}", flush=True)
         del out, ref, wf
         torch.cuda.empty_cache()
+    if len(cases) != G1_SHAPES:
+        fail(f"G1: {len(cases)} serving shapes captured, expected {G1_SHAPES}")
     head = "timm_efficientnet_b0"
-    b0 = [v for v in cases.values() if v["backbone"] == head]
-    if sum(v["per_pass"] for v in b0) != G1_PER_PASS[head]:
-        fail(f"G1: {sum(v['per_pass'] for v in b0)} launches a B0 pass captured, "
-             f"expected {G1_PER_PASS[head]}")
+    for backbone in ("timm_efficientnet_b0", "timm_regnety_008"):
+        got = sum(v["per_pass"] for v in cases.values() if v["backbone"] == backbone)
+        if got != G1_PER_PASS[backbone]:
+            fail(f"G1: {got} launches a {backbone} pass captured, expected "
+                 f"{G1_PER_PASS[backbone]}")
 
     def per_pass(key, backbone=head):
         return sum(v[key] * v["per_pass"] for v in cases.values() if v["backbone"] == backbone)
 
+    b0 = [v for v in cases.values() if v["backbone"] == head]
     by_ops = sum(v["per_pass"] * v["bound_ms"] for v in b0 if v["bound_by"] == "operations")
+    usage = _cuda_build.ptxas_usage(_cuda_build.build_log("grouped_conv_s8"))
     entry = {
         "name": "grouped_conv_s8",
         "route": "cuda",
@@ -3200,21 +3233,25 @@ def phase_g1(seen: dict) -> dict:
         "plain_ms": per_pass("plain_ms"),
         "bound_ms": per_pass("bound_ms"),
         "bound_by": "operations" if by_ops >= per_pass("bound_ms") - by_ops else "bytes",
-        # cuDNN's float32 grouped conv on the int8 values, exact at every
-        # shape where "library" says so (else the float64 call there)
+        # cuDNN's float32 grouped conv on the int8 values, rounded and
+        # folded, exact at every shape where "library" says so (else the
+        # float64 call there)
         "library_ms": per_pass("library_ms"),
         "library": sorted({v["library"] for v in cases.values()}),
         "library_max_abs_err_f32": max(v["cudnn_f32_max_abs_err"] for v in cases.values()),
         "per": f"one EfficientNet-B0 trunk pass of one request ({G1_FRAMES} frames of "
-               f"{K1_PAD[0]}x{K1_PAD[1]}): {G1_PER_PASS[head]} launches",
+               f"{K1_PAD[0]}x{K1_PAD[1]}, bfloat16 out): {G1_PER_PASS[head]} launches",
         "regnety_008_pass": {k: per_pass(k, "timm_regnety_008")
                              for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        "registers_spill_bytes": {g1_instance(name): [u["registers"],
+                                                      u["spill_store_bytes"] + u["spill_load_bytes"]]
+                                  for name, u in usage.items()},
         "cases": cases,
     }
     print(f"[g1] per B0 pass: {entry['ms']:.3f} ms (bound {entry['bound_ms']:.3f} ms, plain "
           f"{entry['plain_ms']:.3f} ms, library {entry['library_ms']:.3f} ms, "
-          f"{entry['library']}); per RegNetY-008 pass: {entry['regnety_008_pass']}",
-          flush=True)
+          f"{entry['library']}); per RegNetY-008 pass: {entry['regnety_008_pass']}; "
+          f"registers and spill bytes: {entry['registers_spill_bytes']}", flush=True)
     return entry
 
 

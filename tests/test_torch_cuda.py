@@ -30,7 +30,11 @@ from tubedetr_tpu_torch.ops.fused_bottleneck import (
     n_bands,
     tile_plan,
 )
-from tubedetr_tpu_torch.ops.int8_conv import grouped_conv2d_int8, grouped_conv2d_int8_plain
+from tubedetr_tpu_torch.ops.int8_conv import (
+    g1_path,
+    grouped_conv2d_int8,
+    grouped_conv2d_int8_plain,
+)
 from tubedetr_tpu_torch.ops.probe_bottleneck import bottleneck_variant, flat_bottleneck
 from tubedetr_tpu_torch.ops.probe_mm import bf16_mm, int8_mm, int8_mm_frames
 from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize, resize_normalize_plain
@@ -821,44 +825,89 @@ def test_maybe_profile_traces_the_cards_kernels(tmp_path):
     assert any(e.get("cat") == "kernel" for e in events)
 
 
-# G1: (N, H, W, C, k, stride, groups), O = C as in the timm trunks
+# G1: (N, H, W, C, k, stride, groups, the launcher's path), O = C as in the
+# timm trunks. Heights and widths are no multiple of a tile (4 x 8*TX
+# depthwise, about 128 pixels grouped), so tiles and tap windows cross the
+# frame's edges; "-bytes" cases stage bytes (channels no multiple of 16)
 G1_CASES = {
-    "dw-k3-s1": (2, 33, 47, 96, 3, 1, 96),
-    "dw-k3-s2": (2, 33, 47, 144, 3, 2, 144),
-    "dw-k5-s1": (1, 19, 21, 240, 5, 1, 240),
-    "dw-k5-s2": (1, 19, 21, 672, 5, 2, 672),
-    "g16-k3-s1": (2, 22, 38, 128, 3, 1, 8),
-    "g16-k3-s2": (2, 22, 38, 320, 3, 2, 20),
-    "g8-k3-odd": (3, 5, 7, 24, 3, 1, 3),
-    "g48-k3-s2": (1, 11, 13, 96, 3, 2, 2),
+    "dw-k3-s1": (2, 33, 47, 96, 3, 1, 96, "depthwise"),
+    "dw-k3-s2": (2, 33, 47, 144, 3, 2, 144, "depthwise"),
+    "dw-k5-s1": (1, 19, 21, 240, 5, 1, 240, "depthwise"),
+    "dw-k5-s2": (1, 19, 21, 672, 5, 2, 672, "depthwise"),
+    "dw-k3-s1-wide": (1, 11, 131, 48, 3, 1, 48, "depthwise"),
+    "dw-k5-s2-tiny": (3, 3, 2, 32, 5, 2, 32, "depthwise"),
+    "dw-k3-s1-bytes": (2, 9, 13, 24, 3, 1, 24, "depthwise-bytes"),
+    "dw-k5-s2-bytes": (1, 7, 9, 7, 5, 2, 7, "depthwise-bytes"),
+    "g8-k3-s1": (2, 22, 38, 64, 3, 1, 8, "grouped-mma"),
+    "g8-k3-odd": (3, 5, 7, 24, 3, 1, 3, "grouped-mma"),
+    "g16-k3-s1": (2, 22, 38, 128, 3, 1, 8, "grouped-mma"),
+    "g16-k3-s2": (2, 22, 38, 320, 3, 2, 20, "grouped-mma"),
+    "g16-k3-s2-wide": (1, 15, 151, 64, 3, 2, 4, "grouped-mma"),
+    "g16-k5-s1": (1, 9, 11, 32, 5, 1, 2, "grouped-mma"),
+    "g24-k3-s1": (1, 11, 19, 96, 3, 1, 4, "grouped-mma"),
+    "g24-k3-s2": (2, 13, 9, 48, 3, 2, 2, "grouped-mma"),
+    "g48-k3-s2": (1, 11, 13, 96, 3, 2, 2, "grouped-mma"),
+    "g48-k3-s1": (1, 11, 19, 768, 3, 1, 16, "grouped-mma"),
+    "g4-k3-general": (1, 7, 9, 12, 3, 1, 3, "general"),
+    "dw-k7-general": (1, 9, 10, 16, 7, 2, 16, "general"),
 }
 
 
-@pytest.mark.parametrize("case", list(G1_CASES))
-def test_g1_kernel_matches_plain(case):
-    """G1 equals its plain version exactly (int32), on the card and on the
-    CPU; one launch a call."""
-    require_cuda()
-    n, h, w, c, k, stride, groups = G1_CASES[case]
+def g1_operands(case: str, dtype: torch.dtype):
+    n, h, w, c, k, stride, groups, _ = G1_CASES[case]
     gen = torch.Generator().manual_seed(6)
     xq = torch.randint(-127, 128, (n, h, w, c), dtype=torch.int8, generator=gen)
     wq = torch.randint(-127, 128, (c, k * k * (c // groups)), dtype=torch.int8, generator=gen)
+    # per-channel scales of the trunks' magnitude, each its own float32
+    scale = (torch.rand(c, generator=gen, dtype=torch.float64) * 1e-4 + 1e-6).float()
+    return xq, wq, k, stride, groups, scale, dtype
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", list(G1_CASES))
+def test_g1_kernel_matches_plain(case, dtype):
+    """G1 takes the expected path and equals its plain version (the int32
+    conv, then the fold) bit for bit, on the card and on the CPU; one launch
+    a call."""
+    require_cuda()
+    xq, wq, k, stride, groups, scale, dt = g1_operands(case, getattr(torch, dtype))
+    assert g1_path(xq.cuda(), wq.cuda(), k, stride, groups) == G1_CASES[case][-1]
     before = grouped_conv2d_int8.launches
-    got = grouped_conv2d_int8(xq.cuda(), wq.cuda(), k, stride, groups)
+    got = grouped_conv2d_int8(xq.cuda(), wq.cuda(), k, stride, groups, scale.cuda(), dt)
     torch.cuda.synchronize()
     assert grouped_conv2d_int8.launches == before + 1
-    assert torch.equal(got.cpu(), grouped_conv2d_int8_plain(xq, wq, k, stride, groups))
-    assert torch.equal(got, grouped_conv2d_int8_plain(xq.cuda(), wq.cuda(), k, stride, groups))
+    assert got.dtype == dt and got.is_contiguous()
+    ref = grouped_conv2d_int8_plain(xq, wq, k, stride, groups, scale, dt)
+    assert torch.equal(got.cpu(), ref)
+    assert torch.equal(got, grouped_conv2d_int8_plain(xq.cuda(), wq.cuda(), k, stride, groups,
+                                                      scale.cuda(), dt))
+
+
+def test_g1_takes_misaligned_bases():
+    """Operands one byte past an aligned base take the byte-staged or
+    general path, and still equal the plain version."""
+    require_cuda()
+    for case in ("dw-k3-s1", "g16-k3-s1"):
+        xq, wq, k, stride, groups, scale, dt = g1_operands(case, torch.bfloat16)
+        xm = torch.empty(xq.numel() + 1, dtype=torch.int8, device="cuda")[1:].view(xq.shape)
+        xm.copy_(xq)
+        got = grouped_conv2d_int8(xm, wq.cuda(), k, stride, groups, scale.cuda(), dt)
+        assert torch.equal(got.cpu(), grouped_conv2d_int8_plain(xq, wq, k, stride, groups,
+                                                                scale, dt))
 
 
 def test_g1_rejects_what_it_cannot_take():
     require_cuda()
     xq = torch.zeros((1, 4, 4, 8), dtype=torch.int8, device="cuda")
     wq = torch.zeros((8, 9 * 4), dtype=torch.int8, device="cuda")
+    scale = torch.ones(8, device="cuda")
     with pytest.raises(ValueError, match="contiguous"):
-        grouped_conv2d_int8(xq.transpose(1, 2), wq, 3, 1, 2)
-    with pytest.raises(ValueError, match="aligned"):
-        grouped_conv2d_int8(xq.flatten()[1:].reshape(1, 1, 1, -1)[..., :8].reshape(1, 1, 1, 8),
-                            wq, 3, 1, 2)
+        grouped_conv2d_int8(xq.transpose(1, 2), wq, 3, 1, 2, scale, torch.float32)
     with pytest.raises(ValueError, match="devices"):
-        grouped_conv2d_int8(xq, wq.cpu(), 3, 1, 2)
+        grouped_conv2d_int8(xq, wq.cpu(), 3, 1, 2, scale, torch.float32)
+    with pytest.raises(ValueError, match="devices"):
+        grouped_conv2d_int8(xq, wq, 3, 1, 2, scale.cpu(), torch.float32)
+    with pytest.raises(ValueError, match="scale"):
+        grouped_conv2d_int8(xq, wq, 3, 1, 2, scale.half(), torch.float32)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        grouped_conv2d_int8(xq, wq, 3, 1, 2, scale, torch.float16)

@@ -167,8 +167,9 @@ def test_port_imports_and_serves_with_jax_blocked(tmp_path):
         assert not any(m.split(".")[0] in {BLOCKED!r} for m, v in sys.modules.items() if v)
         print("SERVED", out["sted"])
     """)
+    # one torch thread, as the tier-1 run's workers use (tests/torch_threads.py)
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
-                          timeout=300, cwd=str(tmp_path))
+                          timeout=300, cwd=str(tmp_path), env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "SERVED" in proc.stdout
 

@@ -1,9 +1,11 @@
 """The timm trunks' int8 paths against the JAX package, on the CPU.
 
 * G1's plain version (``ops/int8_conv.py:grouped_conv2d_int8_plain``, which
-  the wrapper runs for a CPU tensor) equals XLA's grouped int8
-  ``conv_general_dilated`` bit for bit: depthwise k3/k5 at stride 1 and 2,
-  groups of 8 and 16 channels, odd spatial sizes;
+  the wrapper runs for a CPU tensor): its int32 conv equals XLA's grouped
+  int8 ``conv_general_dilated`` bit for bit (depthwise k3/k5 at stride 1
+  and 2, groups of 8 and 16 channels, odd spatial sizes), and with its fold
+  an int8_static grouped conv equals the JAX ``BottleneckConv`` bit for
+  bit, in bfloat16 and float32;
 * calibration (``int8``, dynamic + observe) and the ``int8_static`` trunk on
   the calibrated scales (EfficientNet, RegNetX, RegNetY, ConvNeXt), and ``int8_qat``
   on the JAX scales. The JAX side runs op by op
@@ -61,7 +63,11 @@ from tubedetr_tpu_torch.interop.from_jax import (
 from tubedetr_tpu_torch.models import quantize as tq
 from tubedetr_tpu_torch.models.resnet import QConv, QLinear
 from tubedetr_tpu_torch.models.tubedetr import build_model
-from tubedetr_tpu_torch.ops.int8_conv import grouped_conv2d_int8, grouped_conv2d_int8_plain
+from tubedetr_tpu_torch.ops.int8_conv import (
+    grouped_conv2d_int8,
+    grouped_conv2d_int8_plain,
+    grouped_conv2d_int32,
+)
 
 MAXIMA_RTOL, MAXIMA_EXACT_RTOL = 5e-2, 1e-4  # the module docstring says why
 
@@ -79,6 +85,9 @@ G1_CASES = {
 
 @pytest.mark.parametrize("case", list(G1_CASES))
 def test_grouped_plain_matches_xla_bit_for_bit(case):
+    """The exact int32 conv under G1's plain version equals XLA's grouped
+    int8 conv; so does the wrapper (on a CPU tensor, the plain version) folded
+    by a unit scale into float32, which holds every such sum exactly."""
     n, h, w, c, o, k, stride, groups = G1_CASES[case]
     rng = np.random.RandomState(3)
     xq = rng.randint(-127, 128, (n, h, w, c)).astype(np.int8)
@@ -88,23 +97,65 @@ def test_grouped_plain_matches_xla_bit_for_bit(case):
         dimension_numbers=("NHWC", "HWIO", "NHWC"), preferred_element_type=jnp.int32,
         feature_group_count=groups)
     wq = torch.from_numpy(np.ascontiguousarray(hwio.transpose(3, 0, 1, 2).reshape(o, -1)))
+    got = grouped_conv2d_int32(torch.from_numpy(xq), wq, k, stride, groups)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     before = grouped_conv2d_int8.launches
-    for fn in (grouped_conv2d_int8_plain, grouped_conv2d_int8):
-        got = fn(torch.from_numpy(xq), wq, k, stride, groups)
-        assert got.dtype == torch.int32
-        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    folded = grouped_conv2d_int8(torch.from_numpy(xq), wq, k, stride, groups, torch.ones(o),
+                                 torch.float32)
     assert grouped_conv2d_int8.launches == before  # a CPU tensor runs the plain version
+    np.testing.assert_array_equal(folded.numpy(), np.asarray(ref).astype(np.float32))
 
 
 def test_grouped_wrapper_refuses_what_g1_cannot_take():
     xq = torch.zeros((1, 4, 4, 8), dtype=torch.int8)
-    for args, match in (((torch.zeros((8, 9), dtype=torch.int8), 3, 1, 3), "groups"),
-                        ((torch.zeros((8, 16), dtype=torch.int8), 4, 1, 8), "odd"),
-                        ((torch.zeros((8, 9), dtype=torch.int8), 3, 3, 8), "stride"),
-                        ((torch.zeros((8, 10), dtype=torch.int8), 3, 1, 8), "taps"),
-                        ((torch.zeros((8, 9)), 3, 1, 8), "int8")):
+    w8 = torch.zeros((8, 9), dtype=torch.int8)
+    one, f32 = torch.ones(8), torch.float32
+    for args, match in (((torch.zeros((8, 9), dtype=torch.int8), 3, 1, 3, one, f32), "groups"),
+                        ((torch.zeros((8, 16), dtype=torch.int8), 4, 1, 8, one, f32), "odd"),
+                        ((w8, 3, 3, 8, one, f32), "stride"),
+                        ((torch.zeros((8, 10), dtype=torch.int8), 3, 1, 8, one, f32), "taps"),
+                        ((torch.zeros((8, 9)), 3, 1, 8, one, f32), "int8"),
+                        ((w8, 3, 1, 8, one, torch.float16), "bfloat16 or float32"),
+                        ((w8, 3, 1, 8, one.double(), f32), "float32 \\(8,\\) scale"),
+                        ((w8, 3, 1, 8, torch.ones(4), f32), "float32 \\(8,\\) scale"),
+                        ((w8, 3, 1, 8, torch.ones(1, 8), f32), "float32 \\(8,\\) scale")):
         with pytest.raises(ValueError, match=match):
             grouped_conv2d_int8(xq, *args)
+        if match != "int8":
+            with pytest.raises(ValueError, match=match):
+                grouped_conv2d_int8_plain(xq, *args)
+
+
+# (N, H, W, C, k, stride, groups): EfficientNet's depthwise k5 s2 and a
+# 16-wide RegNet group, tiny
+FOLD_CASES = {"dw-k5-s2": (1, 9, 7, 24, 5, 2, 24), "g16-k3-s1": (2, 5, 6, 32, 3, 1, 2)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(FOLD_CASES))
+def test_folded_grouped_conv_matches_jax_int8_static(case, dtype):
+    """An int8_static grouped ``QConv`` (its quantize, then G1's folded plain
+    version) equals the JAX ``BottleneckConv`` bit for bit, op by op."""
+    from tubedetr_tpu.models.resnet import BottleneckConv
+
+    n, h, w, c, k, stride, groups = FOLD_CASES[case]
+    rng = np.random.RandomState(11)
+    x = rng.randn(n, h, w, c).astype(np.float32)
+    kernel = (rng.randn(k, k, c // groups, c) * 0.2).astype(np.float32)
+    act_max = np.float32(np.abs(x).max() * 0.8)  # some inputs clip
+    jm = BottleneckConv(c, kernel_size=k, stride=stride, groups=groups, quant="int8_static",
+                        dtype=getattr(jnp, dtype))
+    with jax.disable_jit():
+        ref = np.asarray(jm.apply({"params": {"kernel": kernel},
+                                   "qscales": {"act_max": jnp.asarray(act_max)}}, x))
+    conv = QConv(c, c, k, stride, groups, observer=True, dtype=getattr(torch, dtype))
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(kernel.transpose(3, 2, 0, 1).copy()))
+        conv.act_max.fill_(float(act_max))
+        got = conv(torch.from_numpy(x).permute(0, 3, 1, 2), "int8_static").permute(0, 2, 3, 1)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(got.float().numpy(), ref.astype(np.float32))
 
 
 def jax_int8(arch, dtype=jnp.float32, stages=None):

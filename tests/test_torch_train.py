@@ -81,6 +81,20 @@ KW = dict(TINY, batch_size=2, ema=True, ema_decay=0.9, clip_max_norm=0.1, weight
 LOSS_RTOL, NORM_RTOL, PARAM_ATOL = 1e-5, 1e-4, 2e-5
 GROUP_LR = {"main": LRS["lr"], "backbone": LRS["lr_backbone"], "text": LRS["lr_text_encoder"],
             "frozen": 0.0}
+# A float sum's order follows torch's thread count. The post-step parameter
+# bound of ``test_train_step_matches_jax`` was measured at the default count,
+# so that test keeps it; the others run on one thread, as the tier-1 run's
+# workers do (``tests/torch_threads.py``).
+DEFAULT_THREADS = ("test_train_step_matches_jax",)
+
+
+@pytest.fixture(autouse=True)
+def torch_threads(request):
+    threads = torch.get_num_threads()
+    if request.node.originalname not in DEFAULT_THREADS:
+        torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def jax_batch(kw):

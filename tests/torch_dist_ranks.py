@@ -33,7 +33,7 @@ T, STRIDE = 8, 2
 # four videos: seeds and durations (a dur % stride tail); the first two
 # (rank 0's half) hold more annotated frames than the last two
 VIDEOS = ((0, 8), (1, 7), (2, 8), (3, 6))
-THREADS = 2  # a rank's CPU threads (a float sum's order follows their count)
+THREADS = 1  # a rank's CPU threads (a float sum's order follows their count)
 LOSS_RTOL, PARAM_ATOL = 1e-5, 2e-5
 GRAD_ATOL, GRAD_RTOL = 1e-6, 1e-5
 GROUP_LR = {"main": LRS["lr"], "backbone": LRS["lr_backbone"], "text": LRS["lr_text_encoder"]}

@@ -290,13 +290,17 @@ class Float32Conv(nn.Conv2d):
 def _qforward(module: nn.Module, xh: torch.Tensor, mode: str, observe: bool, k: int = 1,
               stride: int = 1, groups: int = 1) -> torch.Tensor:
     """The int8 conv of ``module`` (its weight, bias and ``act_max``) on an
-    NHWC activation: quantize (``quantize_act``), s8 x s8 -> s32 (G1 for
-    ``groups > 1``, else ``conv2d_int8``), the fold ``(acc.f32 * (sx *
-    sw)).to(dtype)``, then the bias in ``dtype``."""
+    NHWC activation: quantize (``quantize_act``), s8 x s8 -> s32 and the
+    fold ``(acc.f32 * (sx * sw)).to(dtype)`` (one G1 launch for ``groups >
+    1``, else ``conv2d_int8`` and the fold in torch), then the bias in
+    ``dtype``."""
     q, s = quantize_act(xh, module.act_max, mode, observe)
     wq, sw = _int8_weight(module)
-    conv = conv2d_int8 if groups == 1 else partial(grouped_conv2d_int8, groups=groups)
-    y = (conv(q.contiguous(), wq, k, stride).float() * (s * sw)).to(module.compute_dtype)
+    dtype = module.compute_dtype
+    if groups == 1:
+        y = (conv2d_int8(q.contiguous(), wq, k, stride).float() * (s * sw)).to(dtype)
+    else:
+        y = grouped_conv2d_int8(q.contiguous(), wq, k, stride, groups, s * sw, dtype)
     return y if module.bias is None else y + module.bias.to(y.dtype)
 
 

@@ -20,12 +20,15 @@ A grouped conv (the timm trunks' depthwise and grouped 3x3 convs, XLA's
 ``feature_group_count``) does not fit that product: a depthwise group has
 one output channel, and ``torch._int_mm`` on the card wants K and N in
 multiples of 8. PyTorch has no int8 grouped convolution (cuDNN's float32
-one on the same integers is exact at these shapes: it is G1's yardstick,
-faster on the depthwise shapes, slower on 4- to 48-wide groups), so
-``grouped_conv2d_int8`` launches G1, the hand-written kernel of
+one on the same integers is exact at these shapes: it is G1's yardstick),
+so ``grouped_conv2d_int8`` launches G1, the hand-written kernel of
 ``csrc/grouped_conv_s8.cu``, on a CUDA tensor (it raises on what the kernel
 does not take) and runs its plain version, ``grouped_conv2d_int8_plain``, on
-a CPU tensor. Its ``launches`` counter counts the kernel's launches.
+a CPU tensor. G1 computes the conv and the int8 fold of
+``models/resnet.py:_qforward`` in one launch, ``dtype(float32(acc) *
+scale)``, so no int32 tensor reaches device memory. Its ``launches``
+counter counts the kernel's launches; ``g1_path`` says which of the
+kernel's paths a shape takes.
 """
 
 from __future__ import annotations
@@ -106,9 +109,9 @@ def _grouped_shapes(xq: torch.Tensor, wq: torch.Tensor, k: int, stride: int, gro
     return (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
 
 
-def grouped_conv2d_int8_plain(xq: torch.Tensor, wq: torch.Tensor, k: int, stride: int = 1,
-                              groups: int = 1) -> torch.Tensor:
-    """G1's plain version: the grouped conv in floating point, whose integer
+def grouped_conv2d_int32(xq: torch.Tensor, wq: torch.Tensor, k: int, stride: int = 1,
+                         groups: int = 1) -> torch.Tensor:
+    """The grouped conv, exact in int32: in floating point, whose integer
     products and partial sums (at most ``k*k*C/groups * 127^2``) it holds
     exactly, rounded back to int32. On the CPU that is float32 while the
     sums stay below 2^24 (every timm conv: 432 terms at most), which
@@ -125,38 +128,78 @@ def grouped_conv2d_int8_plain(xq: torch.Tensor, wq: torch.Tensor, k: int, stride
     return y.permute(0, 2, 3, 1).round().to(torch.int32).contiguous()
 
 
-def _launch_g1(xq, wq, out, k: int, stride: int, groups: int) -> None:
-    fn = _cuda_build.load("grouped_conv_s8").grouped_conv_s8
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+def _check_fold(wq: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> None:
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"G1 folds into bfloat16 or float32, not {dtype}")
+    if scale.dtype != torch.float32 or tuple(scale.shape) != (wq.shape[0],):
+        raise ValueError(f"expected a float32 ({wq.shape[0]},) scale, got {scale.dtype} "
+                         f"{tuple(scale.shape)}")
+
+
+def grouped_conv2d_int8_plain(xq: torch.Tensor, wq: torch.Tensor, k: int, stride: int,
+                              groups: int, scale: torch.Tensor,
+                              dtype: torch.dtype) -> torch.Tensor:
+    """G1's plain version: the exact int32 grouped conv
+    (``grouped_conv2d_int32``), then the fold ``(acc.float() *
+    scale).to(dtype)``."""
+    _check_fold(wq, scale, dtype)
+    return (grouped_conv2d_int32(xq, wq, k, stride, groups).float() * scale).to(dtype)
+
+
+_PATHS = {0: "general", 1: "depthwise", 2: "depthwise-bytes", 3: "grouped-mma"}
+_CUDA_INVALID_VALUE = 1  # cudaErrorInvalidValue: what the launcher returns for a shape it refuses
+
+
+def _lib():
+    lib = _cuda_build.load("grouped_conv_s8")
+    if lib.grouped_conv_s8.argtypes is None:
+        lib.grouped_conv_s8.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        lib.grouped_conv_s8.restype = ctypes.c_int
+        lib.grouped_conv_s8_path.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
+        lib.grouped_conv_s8_path.restype = ctypes.c_int
+    return lib
+
+
+def g1_path(xq: torch.Tensor, wq: torch.Tensor, k: int, stride: int, groups: int) -> str:
+    """The path G1's launcher takes for these CUDA operands and a fresh
+    output: ``depthwise``, ``depthwise-bytes`` (byte staging), ``grouped-mma``
+    or ``general`` (builds the kernel; launches nothing)."""
+    ho, wo = _grouped_shapes(xq, wq, k, stride, groups)
     n, h, w, c = xq.shape
-    _, ho, wo, o = out.shape
-    err = fn(xq.data_ptr(), wq.data_ptr(), out.data_ptr(), n, h, w, c, o, k, stride, groups,
-             ho, wo, torch.cuda.current_stream(xq.device).cuda_stream)
+    path = _lib().grouped_conv_s8_path(xq.data_ptr(), wq.data_ptr(), 0, n, h, w, c, wq.shape[0],
+                                       k, stride, groups, ho, wo)
+    return _PATHS[path]
+
+
+def grouped_conv2d_int8(xq: torch.Tensor, wq: torch.Tensor, k: int, stride: int, groups: int,
+                        scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``(N, H, W, C)`` int8 conv ``wq`` (``(O, k*k*C/groups)`` int8, taps
+    in (ky, kx, c) order), zero padding ``k // 2``, ``groups`` groups, folded
+    by the ``(O,)`` float32 ``scale`` -> ``(N, Ho, Wo, O)`` in ``dtype``
+    (bfloat16 or float32): G1 on the card, its plain version on the CPU."""
+    ho, wo = _grouped_shapes(xq, wq, k, stride, groups)
+    _check_fold(wq, scale, dtype)
+    devices = {xq.device, wq.device, scale.device}
+    if devices == {torch.device("cpu")}:
+        return grouped_conv2d_int8_plain(xq, wq, k, stride, groups, scale, dtype)
+    if xq.device.type != "cuda" or len(devices) != 1:
+        raise ValueError(f"unsupported devices {xq.device}, {wq.device} and {scale.device}")
+    if not (xq.is_contiguous() and wq.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("G1 takes contiguous (N, H, W, C) inputs, (O, K) weights and scales")
+    n, h, w, c = xq.shape
+    o = wq.shape[0]
+    out = torch.empty((n, ho, wo, o), dtype=dtype, device=xq.device)
+    with torch.cuda.device(xq.device):
+        err = _lib().grouped_conv_s8(xq.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+                                     out.data_ptr(), n, h, w, c, o, k, stride, groups, ho, wo,
+                                     int(dtype == torch.bfloat16),
+                                     torch.cuda.current_stream(xq.device).cuda_stream)
+    if err == _CUDA_INVALID_VALUE:
+        raise ValueError(f"G1 does not take {tuple(xq.shape)} x {tuple(wq.shape)} (k {k}, stride "
+                         f"{stride}, {groups} groups): a grid too large for its "
+                         f"{g1_path(xq, wq, k, stride, groups)} path")
     if err != 0:
         raise RuntimeError(f"grouped_conv_s8 kernel launch failed: CUDA error {err}")
-
-
-def grouped_conv2d_int8(xq: torch.Tensor, wq: torch.Tensor, k: int, stride: int = 1,
-                        groups: int = 1) -> torch.Tensor:
-    """``(N, H, W, C)`` int8 conv ``wq`` (``(O, k*k*C/groups)`` int8, taps
-    in (ky, kx, c) order), zero padding ``k // 2``, ``groups`` groups ->
-    ``(N, Ho, Wo, O)`` int32: G1 on the card, its plain version on the CPU."""
-    ho, wo = _grouped_shapes(xq, wq, k, stride, groups)
-    if xq.device.type == "cpu" and wq.device.type == "cpu":
-        return grouped_conv2d_int8_plain(xq, wq, k, stride, groups)
-    if xq.device.type != "cuda" or wq.device != xq.device:
-        raise ValueError(f"unsupported devices {xq.device} and {wq.device}")
-    if not (xq.is_contiguous() and wq.is_contiguous()):
-        raise ValueError("G1 takes contiguous (N, H, W, C) inputs and (O, K) weights")
-    if (wq.shape[1] // (k * k)) % 4 == 0 and (xq.data_ptr() % 4 or wq.data_ptr() % 4):
-        raise ValueError("G1 reads 4 channels a word: the bases must be 4-byte aligned")
-    if -(-wo * wq.shape[0] // 256) > 65535:
-        raise ValueError(f"an output row of {wo} x {wq.shape[0]} is too wide for G1's grid")
-    out = torch.empty((xq.shape[0], ho, wo, wq.shape[0]), dtype=torch.int32, device=xq.device)
-    with torch.cuda.device(xq.device):
-        _launch_g1(xq, wq, out, k, stride, groups)
     grouped_conv2d_int8.launches += 1
     return out
 

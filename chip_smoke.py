@@ -134,6 +134,18 @@ line:
    (every collective is the identity); the ``[dist]`` lines give each
    rank's warm step, peak memory and, on several cards, NCCL's share of a
    traced step;
+10b. the measuring entry points of ``scripts/`` (``phase_prof``, ``[prof]``,
+   ``tubedetr_tpu_torch/probes``), each at its script's shapes: the
+   per-stage trunk profile of ResNet-101 (``stages=N``) in bf16 and in
+   int8_static with K2 (its launches in one call of each cut 0, 2, 5, 27,
+   29; the whole int8 trunk's top device operations from one traced call)
+   and of EfficientNet-B0 in int8_static (G1 16 a whole call); K2 against the
+   unfused int8 block at layer3 and layer4 (within the tests' bound of the
+   float32 unfused block); the train step split by part (``attribution_ms``);
+   int8_static with K2 against float at full width (K2 29 a trunk pass); the
+   int8 conv routes conv by conv; K1 against the einsum resize routes (K1
+   held to its plain version first); the host staging rates against this
+   phase's own train step and trunk;
 11. the probes P1-P5 (``tubedetr_tpu_torch/probes``): both entry points at
    the scripts' full shapes with their launch counts zeroed just before and
    read just after, each kernel held exactly to its plain version, and
@@ -149,8 +161,9 @@ Then the script's seconds, one ``kernels`` JSON line (each kernel's
 phase 7b, and by path: serve, the int8 + K2
 pipeline, train, train in bf16, the model flags' int8 + K2 legs, the CLI's
 int8 eval and its reload request, the quantized training legs and the QAT
-deploy request, and K2's on
-rank 0's time-split and tensor-parallel evals of phase 10), the
+deploy request, K2's on
+rank 0's time-split and tensor-parallel evals of phase 10, and those of
+the ``[prof]`` entry points of phase 10b), the
 ``nvidia-smi`` line again, and,
 last, the ``ok`` JSON line. There is no CPU path: without a card the script exits 2.
 """
@@ -244,6 +257,19 @@ CLI_PROFILE_STEP = 2
 # frames of the fast pass held bit for bit against an int8_static trunk
 QUANT_STEPS = 3
 QUANT_CHECK_FRAMES = 16
+# the [prof] phase, the measuring entry points of scripts/ at their shapes:
+# timed calls a truncation, K2's launches in one call of ResNet-101 cut after
+# 0..4 stage groups (the tails of the stages it runs: 2, 3, 22, 2), G1's in
+# one call of the whole EfficientNet-B0 int8 trunk, the train-step
+# variants' K, the operations listed from the trace, and the bound that
+# tests/test_fused_bottleneck.py holds K2 to against the float32 unfused
+# block (at most one step apart, over 99% of the outputs equal)
+PROF_ITERS = 2
+PROF_K2_BY_STAGES = (0, 2, 5, 27, 29)
+PROF_G1_B0 = 16
+PROF_TRAIN_K = 2
+PROF_TOP = 15
+PROF_K2_MAX_STEP, PROF_K2_MIN_EQUAL = 1, 0.99
 
 
 def fail(msg: str) -> None:
@@ -3026,6 +3052,144 @@ def phase_dist(smi: str):
     return got[0]["int8"]["k2_launches"], got[0]["int8_tp"]["k2_launches"]
 
 
+def phase_prof(smi: str) -> dict:
+    """The measuring entry points of ``scripts/`` (``tubedetr_tpu_torch/probes``),
+    each at its script's shapes, on one card:
+
+    * ``backbone_stages``: ResNet-101 (DC5, 200 frames of 352x352) cut after
+      its stem and each stage group, in bf16 and in int8_static with K2 on
+      the tails (``PROF_FUSED``); K2's launches in one call of each cut must
+      be ``PROF_K2_BY_STAGES``; the whole int8_static trunk's call once more
+      under ``torch.profiler`` (device activities), its top operations read
+      by ``device_profile``; then EfficientNet-B0 in int8_static, whose whole
+      trunk must launch G1 ``PROF_G1_B0`` times a call;
+    * ``fused_block``: layer3 and layer4, K2 against the unfused int8 block,
+      which must agree within the tests' bound (``PROF_K2_MAX_STEP``,
+      ``PROF_K2_MIN_EQUAL``, against the float32 unfused route);
+    * ``train_step``: the five variants, ``PROF_TRAIN_K`` steps each, one
+      timed iteration; its JSON line with ``attribution_ms``;
+    * ``int8_accuracy`` with K2 (``FUSED=1``): K2 ``K2_PER_PASS`` times in
+      the int8 forward's one trunk pass, the readings finite;
+    * ``int8_conv``; ``preprocess``, after K1 is held to its plain version
+      on the probe's frames within a bf16 ulp (as ``phase_k1`` holds it);
+      ``staging`` last, with the demand of this phase's own train step and
+      int8_static + K2 trunk.
+
+    Returns the launches by path of K1, K2 and G1."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tubedetr_tpu_torch.ops.fused_bottleneck import fused_bottleneck_block
+    from tubedetr_tpu_torch.ops.resize_normalize import resize_normalize, resize_normalize_plain
+    from tubedetr_tpu_torch.probes import backbone_stages, fused_block, int8_accuracy
+    from tubedetr_tpu_torch.probes import int8_conv, preprocess, staging, train_step
+
+    phase_t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    def say(text):  # the probes' own lines, each marked once
+        print("\n".join(ln if ln.startswith("[prof]") else f"[prof] {ln}" for ln in text.split("\n")),
+              flush=True)
+
+    launches = {"fused_bottleneck": {}, "grouped_conv_s8": {}, "resize_normalize": {}}
+    line = {"card": smi}
+
+    def top_ops(model, x):
+        with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, sec = synced(lambda: model(x))
+        line["top_ops_int8_static_k2_trunk"] = device_profile(prof, sec, PROF_TOP)
+        print(f"[prof-top] {json.dumps(line['top_ops_int8_static_k2_trunk'])}", flush=True)
+
+    # per-stage profiles
+    tables = {}
+    for label, kw in (("resnet101 bf16", dict(quant="none")),
+                      ("resnet101 int8_static+K2", dict(quant="int8_static", fused=True,
+                                                        on_full=top_ops)),
+                      ("efficientnet_b0 int8_static", dict(arch="efficientnet_b0",
+                                                           quant="int8_static"))):
+        say(f"python -m tubedetr_tpu_torch.probes.backbone_stages ({label})")
+        rec = backbone_stages.profile(**{"arch": "resnet101", **kw}, iters=PROF_ITERS, out=say)
+        tables[label] = {"delta_ms": {rec["names"][n]: v * 1e3 for n, v in rec["delta_s"].items()},
+                         "cum_ms": {rec["names"][n]: v * 1e3 for n, v in rec["times_s"].items()},
+                         "launches_a_call": rec["launches"]}
+        torch.cuda.empty_cache()
+    k2_cuts = tables["resnet101 int8_static+K2"]["launches_a_call"]
+    if tuple(k2_cuts[n] for n in range(5)) != PROF_K2_BY_STAGES:
+        fail(f"[prof] K2 launches a call by truncation {k2_cuts}, expected {PROF_K2_BY_STAGES}")
+    g1_cuts = tables["efficientnet_b0 int8_static"]["launches_a_call"]
+    if g1_cuts[7] != PROF_G1_B0:
+        fail(f"[prof] G1 launched {g1_cuts[7]} times in the whole B0 trunk, expected {PROF_G1_B0}")
+    # one call of each truncation
+    launches["fused_bottleneck"]["prof stages"] = sum(k2_cuts.values())
+    launches["grouped_conv_s8"]["prof stages"] = sum(g1_cuts.values())
+    line["stages"] = tables
+
+    # K2 against the unfused block
+    fused_bottleneck_block.launches = 0
+    line["fused_block"] = {}
+    for stage in ("layer3", "layer4"):
+        say(f"python -m tubedetr_tpu_torch.probes.fused_block {stage}")
+        rec = fused_block.run_stage(stage, out=say)
+        line["fused_block"][stage] = rec
+        if rec["max_diff_f32_all"] > PROF_K2_MAX_STEP or rec["agree_f32_all"] <= PROF_K2_MIN_EQUAL:
+            fail(f"[prof] {stage}: K2 against the float32 unfused block: max step "
+                 f"{rec['max_diff_f32_all']}, {rec['agree_f32_all']:.6f} equal; the tests hold "
+                 f"<= {PROF_K2_MAX_STEP} and > {PROF_K2_MIN_EQUAL}")
+    launches["fused_bottleneck"]["prof fused block"] = fused_bottleneck_block.launches
+    torch.cuda.empty_cache()
+
+    # the train step by part
+    say(f"PROF_K={PROF_TRAIN_K} PROF_ITERS=1 python -m tubedetr_tpu_torch.probes.train_step")
+    train = train_step.profile(train_step.make_config(), k=PROF_TRAIN_K, iters=1, out=say)
+    print(f"[prof-train] {json.dumps(train)}", flush=True)
+    line["train_step"] = train
+    torch.cuda.empty_cache()
+
+    # int8 against float at full width, K2 on the tails
+    say("FUSED=1 python -m tubedetr_tpu_torch.probes.int8_accuracy")
+    fused_bottleneck_block.launches = 0
+    acc = int8_accuracy.run(fused=True, out=say)
+    launches["fused_bottleneck"]["prof int8 accuracy"] = fused_bottleneck_block.launches
+    if acc["k2_launches"] != K2_PER_PASS:
+        fail(f"[prof] int8 accuracy: K2 launched {acc['k2_launches']} times in one trunk pass, "
+             f"expected {K2_PER_PASS}")
+    if not all(np.isfinite(acc[k]) for k in ("boxes_max_dev", "sted_max_dev", "boxes_corr")):
+        fail(f"[prof] int8 accuracy: readings not finite: {acc}")
+    line["int8_accuracy"] = acc
+    torch.cuda.empty_cache()
+
+    say("python -m tubedetr_tpu_torch.probes.int8_conv")
+    line["int8_conv"] = int8_conv.run(out=say)
+    torch.cuda.empty_cache()
+
+    # K1 on the preprocess probe's frames, held to its plain version first
+    res = 352
+    frames = preprocess.make_frames(np.random.RandomState(0), device="cuda")
+    out = resize_normalize(frames, res, res, out_dtype=torch.bfloat16).float()
+    ref = resize_normalize_plain(frames, res, res, None, torch.float32)
+    err = (out - ref).abs()
+    if not bool((err <= bf16_ulp(ref) + F32_ATOL).all()):
+        fail(f"[prof] K1 bf16 on the preprocess frames beyond 1 bf16 ulp + atol {F32_ATOL}: "
+             f"max |err| {err.max().item()}")
+    line["k1_max_abs_err"] = err.max().item()
+    del frames, out, ref, err
+    say("python -m tubedetr_tpu_torch.probes.preprocess")
+    resize_normalize.launches = 0
+    line["preprocess"] = preprocess.run(res=res, out=say)
+    launches["resize_normalize"]["prof preprocess"] = resize_normalize.launches
+    if not resize_normalize.launches:
+        fail("[prof] the preprocess probe did not launch K1")
+    torch.cuda.empty_cache()
+
+    say("ITERS=1 python -m tubedetr_tpu_torch.probes.staging")
+    trunk_s = tables["resnet101 int8_static+K2"]["cum_ms"]["layer4"] / 1e3
+    line["staging"] = staging.run(iters=1, out=say, demand={
+        "the train step (train_step probe, full)": train["ms"]["full"] / 1e3,
+        "the int8_static + K2 trunk alone (backbone_stages)": trunk_s})
+    line["phase_s"] = time.perf_counter() - phase_t0
+    print(f"[prof] {json.dumps(line)}", flush=True)
+    return launches
+
 # [timm]: the three timm families at the widths the repo measured on the
 # TPU (README), the trunk of each at full width with the headline model's
 # transformer and RoBERTa-base; G1's launches a trunk pass (the depthwise
@@ -3573,6 +3737,7 @@ def main() -> int:
     cli_launches = phase_cli(smi)
     phase_cli_small()
     dist_launches, dist_tp_launches = phase_dist(smi)
+    prof_launches = phase_prof(smi)
     probes = phase_probes()
     # the counts of the serving path, the HTTP server (int8_static + K2);
     # the pipeline's, the training path's and the CLI's beside them
@@ -3593,6 +3758,9 @@ def main() -> int:
     for entry, key in ((k1, "resize_normalize"), (k2, "fused_bottleneck")):
         entry["launches_by_path"].update({f"timm {p}": n[key] for p, n in timm_launches.items()})
     g1["launches_by_path"] = {f"timm {p}": n["grouped_conv_s8"] for p, n in timm_launches.items()}
+    # the measuring entry points of [prof]
+    for entry, key in ((k1, "resize_normalize"), (k2, "fused_bottleneck"), (g1, "grouped_conv_s8")):
+        entry["launches_by_path"].update(prof_launches[key])
     g1["launches"] = sum(n for p, n in g1["launches_by_path"].items() if "int8_static full" in p)
     if not g1["launches"]:
         fail("G1 was not launched on its main path, the timm int8_static serving legs")

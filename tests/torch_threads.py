@@ -5,9 +5,8 @@ torch would start as many intra-op threads as the machine has cores, and
 the workers' threads would then wait on one another. A test module that
 imports ``one_torch_thread`` runs its torch work on one thread and
 restores the count after. A float sum's order follows the thread count, so
-a test whose bound was measured at the default count keeps that count
-(``tests/test_torch_train.py:DEFAULT_THREADS``), and the spawning modules set
-their ranks' own (``tests/torch_dist_ranks.py:THREADS``, one thread too).
+a bound must hold at any count; the spawning modules set their ranks' own
+(``tests/torch_dist_ranks.py:THREADS``, one thread too).
 """
 
 import pytest

@@ -506,19 +506,25 @@ class Bottleneck(nn.Module):
 class ResNet(QuantTrunk, nn.Module):
     """Trunk returning the layer4 map: stride 32, 2048 channels (stride 16
     with ``dilation``, the DC5 variant: layer4 keeps stride 1 and dilates its
-    3x3 convs by 2, its first block keeping the previous dilation of 1)."""
+    3x3 convs by 2, its first block keeping the previous dilation of 1).
 
-    out_channels = 2048
+    ``stages=N`` (the JAX package's profiling aid) builds and runs the first
+    N stage groups only: 0 returns the stem after the max pool, 4 (the
+    default) the whole trunk. An int8 carrier is dequantized once at the
+    cut, as at the end of the whole trunk. A whole trunk's ``state_dict``
+    loads into a truncated one with ``strict=False``."""
 
     def __init__(self, arch: str = "resnet101", dilation: bool = False,
                  quant: str = "none", fused_blocks: bool = False, remat: bool = False,
                  remat_policy: str = "full", dtype: torch.dtype = torch.float32,
-                 observers: Optional[str] = None):
+                 observers: Optional[str] = None, stages: int = 4):
         super().__init__()
         base, norm = parse_backbone_name(arch)
         if base not in STAGE_BLOCKS:
             raise NotImplementedError(f"backbone {arch!r}; expected one of {sorted(STAGE_BLOCKS)}"
                                       " (each also with -gn)")
+        if stages not in range(5):
+            raise ValueError(f"stages {stages!r}; expected 0 to 4")
         if quant not in QUANT_MODES:
             raise NotImplementedError(f"quant {quant!r}; expected one of {QUANT_MODES}")
         if observers is None:
@@ -530,6 +536,8 @@ class ResNet(QuantTrunk, nn.Module):
             raise NotImplementedError(f"remat_policy {remat_policy!r}; expected one of "
                                       f"{sorted(KEPT_CONVS)}")
         self.quant, self.observers = quant, observers
+        self.stages = stages
+        self.out_channels = (64, 256, 512, 1024, 2048)[stages]
         self.remat = remat
         self.kept_convs = KEPT_CONVS[remat_policy]
         self.observe = False  # int8: record activation maxima (calibration)
@@ -538,7 +546,8 @@ class ResNet(QuantTrunk, nn.Module):
         if observers:
             _observer(self, "stem_act_max")
         inplanes, cur_dilation = 64, 1
-        for i, (planes, n_blocks) in enumerate(zip((64, 128, 256, 512), STAGE_BLOCKS[base])):
+        plan = zip((64, 128, 256, 512), STAGE_BLOCKS[base][:stages])
+        for i, (planes, n_blocks) in enumerate(plan):
             stride = 1 if i == 0 else 2
             prev_dilation = cur_dilation
             if i == 3 and dilation:
@@ -554,13 +563,17 @@ class ResNet(QuantTrunk, nn.Module):
                 for _ in range(1, n_blocks)
             ]
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
-        for frozen in (self.conv1, self.bn1, self.layer1):
+        for frozen in (self.conv1, self.bn1, *self.layers()[:1]):
             frozen.requires_grad_(False)
         self.register_load_state_dict_post_hook(lambda module, _: module.clear_int8_cache())
 
+    def layers(self):
+        """The stage groups the trunk runs, ``layer1`` first."""
+        return [getattr(self, f"layer{i + 1}") for i in range(self.stages)]
+
     def blocks(self):
-        for i in (1, 2, 3, 4):
-            yield from getattr(self, f"layer{i}")
+        for layer in self.layers():
+            yield from layer
 
     def _run(self, block: Bottleneck, fn, x):
         """``fn(x)`` of ``block``, under ``torch.utils.checkpoint`` with
@@ -573,7 +586,7 @@ class ResNet(QuantTrunk, nn.Module):
 
     def forward(self, x: torch.Tensor, quant: Optional[str] = None,
                 frozen_prefix_quant: Optional[str] = None) -> torch.Tensor:
-        """(N, H, W, 3) NHWC -> (N, h, w, 2048) NHWC, in the trunk's mode or
+        """(N, H, W, 3) NHWC -> (N, h, w, out_channels) NHWC, in the trunk's mode or
         in ``quant`` on the same weights; ``frozen_prefix_quant`` sets the
         mode of the stem and layer1 alone. An int8 carrier that meets a
         stage in another mode is dequantized once; a QAT stage takes the
@@ -595,9 +608,8 @@ class ResNet(QuantTrunk, nn.Module):
             x = quantize_act(x.permute(0, 2, 3, 1).contiguous(), self.stem_act_max, prefix_q,
                              self.observe)
             carrier = "int8"
-        for i in range(4):
+        for i, layer in enumerate(self.layers()):
             stage_q = prefix_q if i == 0 else quant
-            layer = getattr(self, f"layer{i + 1}")
             if carrier == "int8" and stage_q not in INT8_MODES:
                 xq, sx = x
                 x = (xq.float() * sx).to(dtype).permute(0, 3, 1, 2)
